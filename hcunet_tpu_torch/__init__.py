@@ -1,0 +1,12 @@
+"""PyTorch and CUDA port of ``hcunet_tpu`` for NVIDIA Hopper GPUs.
+
+Each module mirrors the JAX package's module of the same path and keeps its
+public names and layouts (channels-last ``[B, X, Y, Z, C]``, numpy at the
+host boundary).  The JAX package stays the reference; the port imports
+neither it nor JAX.  Entry points run on CUDA unless the caller passes
+``device="cpu"``.
+"""
+
+from hcunet_tpu_torch.config import TileConfig, UNetConfig, auto_tile_config
+
+__all__ = ["TileConfig", "UNetConfig", "auto_tile_config"]

@@ -1,0 +1,138 @@
+"""Serving forward: the inference-optimised U-Net pass (twin of
+``hcunet_tpu/infer/compile.py::compile_serving_apply``).
+
+Takes a :class:`~hcunet_tpu_torch.models.unet.UNet` and returns
+``apply(tiles[B, tx, ty, tz, C]) -> float32 logits``, equal to the model's
+eval forward up to BN-folding rounding:
+
+* inference BN is folded into each conv's weights and bias once, on the
+  host (grouped weights expanded to block-diagonal dense first);
+* each of the valid convs is kernel K1 (:func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`)
+  with the folded bias and the ReLU in its epilogue;
+* transpose convs are ``F.conv_transpose3d``, pools and the crop-and-concat
+  at the skips plain PyTorch, channels-last throughout.
+
+The JAX function's z-block lane packing was sized for the TPU's 128-lane
+matrix unit and is not carried over: only its contract is.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import torch
+
+from hcunet_tpu_torch.config import UNetConfig, resolve_device
+from hcunet_tpu_torch.models.unet import (
+    UNet,
+    conv_weight_channels_last,
+    crop_spatial,
+    tconv_weight_channels_last,
+)
+from hcunet_tpu_torch.ops.conv import (
+    block_diagonal_weights,
+    conv3d_valid,
+    conv_transpose_torch,
+    fold_bn_into_conv,
+    max_pool,
+)
+
+_Folded = Tuple[torch.Tensor, torch.Tensor]  # weights [*k, Cin, Cout], f32 bias
+
+
+@torch.no_grad()
+def _folded_conv_params(conv, bn, groups: int, dtype, device) -> _Folded:
+    """Conv weights with inference BN folded in, computed in float32 on the
+    host, then moved to ``device``: weights in ``dtype``, bias in float32."""
+    w = conv_weight_channels_last(conv.weight).detach().float().cpu()
+    if groups > 1:
+        w = block_diagonal_weights(w, groups)
+    w_f, b_f = fold_bn_into_conv(
+        w, conv.bias.detach().float().cpu(),
+        bn.weight.detach().cpu(), bn.bias.detach().cpu(),
+        bn.running_mean.cpu(), bn.running_var.cpu(), bn.eps,
+    )
+    return (
+        w_f.to(device=device, dtype=dtype).contiguous(),
+        b_f.to(device=device).contiguous(),
+    )
+
+
+def compile_serving_apply(
+    model: UNet,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+    conv: Callable = conv3d_valid,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build the BN-folded inference forward for a 3D valid-conv UNet.
+
+    Returns ``apply(tiles[B, tx, ty, tz, C]) -> logits`` (float32) on
+    ``device`` (CUDA unless given).  ``conv`` runs the valid convs with the
+    signature of :func:`conv3d_valid`; K1 by default.  Falls back to the
+    model's plain forward where the JAX function does: 2D configs,
+    dilation > 1, a z upsample stride other than 1 or a pool other than
+    (2, 2, 1).
+    """
+    dev = resolve_device(device)
+    cfg: UNetConfig = model.config
+    if (
+        cfg.image_dimensions != 3
+        or cfg.dilation != 1
+        or cfg.upsample_stride[2] != 1
+        or tuple(cfg.max_pool_kernel) != (2, 2, 1)
+    ):
+        plain = UNet(cfg, dtype=dtype)
+        plain.load_state_dict(model.state_dict())
+        plain.to(dev).eval()
+
+        @torch.no_grad()
+        def plain_apply(tiles: torch.Tensor) -> torch.Tensor:
+            return plain(tiles.to(dev))
+
+        return plain_apply
+
+    def block(step) -> List[_Folded]:
+        return [
+            _folded_conv_params(step.conv1, step.batch1, cfg.groups, dtype, dev),
+            _folded_conv_params(step.conv2, step.batch2, cfg.groups, dtype, dev),
+        ]
+
+    downs = [block(step) for step in model.down_steps]
+    ups = []
+    for step in model.up_steps:
+        w_up = tconv_weight_channels_last(step.up_conv.weight).detach()
+        ups.append((
+            w_up.to(device=dev, dtype=dtype).contiguous(),
+            step.up_conv.bias.detach().float().to(dev),
+            block(step),
+        ))
+    w_out = conv_weight_channels_last(model.out_conv.weight).detach()
+    w_out = w_out.to(device=dev, dtype=dtype).contiguous()
+    b_out = model.out_conv.bias.detach().float().to(dev)
+    n_levels = len(cfg.feature_sizes)
+
+    @torch.no_grad()
+    def apply_fn(tiles: torch.Tensor) -> torch.Tensor:
+        x = tiles.to(device=dev, dtype=dtype).contiguous()
+        skips = []
+        for i, convs in enumerate(downs):
+            for w, b in convs:
+                x = conv(x, w, b, True)
+            if i < n_levels - 1:
+                skips.append(x)
+                x = max_pool(x, cfg.max_pool_kernel)
+        for w_up, b_up, convs in ups:
+            x = conv_transpose_torch(
+                x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
+            )
+            skip = skips.pop()
+            common = [min(a, s) for a, s in zip(x.shape[1:-1], skip.shape[1:-1])]
+            x = crop_spatial(x, common)
+            joined = x if cfg.reference_skip_bug else crop_spatial(skip, common)
+            x = torch.cat([x, joined], dim=-1)
+            for w, b in convs:
+                x = conv(x, w, b, True)
+        return conv(x, w_out, b_out, False).float()
+
+    return apply_fn

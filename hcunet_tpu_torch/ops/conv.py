@@ -1,0 +1,271 @@
+"""Convolution primitives for the valid-conv U-Net family
+(twin of ``hcunet_tpu/ops/conv.py``).
+
+Channels-last layouts as in the JAX package: activations ``[B, *spatial, C]``,
+conv weights ``[*k, Cin/groups, Cout]``, transpose-conv weights
+``[*k, Cin, Cout]``.
+
+The valid conv is kernel K1, ``csrc/conv3d_valid.cu``, a hand-written CUDA
+implicit GEMM with the bias and ReLU in its epilogue.  :func:`conv3d_valid`
+launches it for a CUDA tensor and raises if it cannot; only a tensor on the
+CPU takes :func:`conv3d_valid_plain`, the same function in plain PyTorch.
+Transpose convs and pooling are plain PyTorch, as the JAX package left them
+to XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from hcunet_tpu_torch.csrc import CudaKernel
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+CONV3D_VALID = CudaKernel(
+    "conv3d_valid.cu",
+    "conv3d_valid",
+    [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
+)
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _tuple(v, n: int) -> Tuple[int, ...]:
+    return (int(v),) * n if isinstance(v, int) else tuple(int(a) for a in v)
+
+
+def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(-1, 1)
+
+
+def _to_channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(1, -1).contiguous()
+
+
+def conv3d_valid_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    dilation: Sequence[int] | int = 1,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1: ``F.conv3d`` in float32, plus the bias,
+    optional ReLU, cast back to ``x``'s dtype.  Same arguments and layouts as
+    :func:`conv3d_valid`."""
+    wt = w.float().permute(4, 3, 0, 1, 2)  # [Cout, Cin, kx, ky, kz]
+    out = F.conv3d(_to_channels_first(x.float()), wt, dilation=_tuple(dilation, 3))
+    out = _to_channels_last(out)
+    if bias is not None:
+        out = out + bias.float()
+    if relu:
+        out = torch.relu(out)
+    return out.to(x.dtype)
+
+
+def conv3d_valid(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    dilation: Sequence[int] | int = 1,
+) -> torch.Tensor:
+    """Valid 3D conv, channels-last, with float32 bias and optional ReLU.
+
+    ``x`` ``[B, X, Y, Z, Cin]`` and ``w`` ``[kx, ky, kz, Cin, Cout]`` in
+    float32 or bfloat16 (the same for both); ``bias`` ``[Cout]`` float32.
+    Returns ``[B, Xo, Yo, Zo, Cout]`` in ``x``'s dtype, summed in float32.
+
+    A CUDA tensor launches K1 (``csrc/conv3d_valid.cu``); a CPU tensor runs
+    :func:`conv3d_valid_plain`.  Any other device, or an input K1 does not
+    take, raises.
+    """
+    if x.device.type == "cpu":
+        return conv3d_valid_plain(x, w, bias, relu, dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_valid: no kernel for device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
+        raise TypeError(
+            f"conv3d_valid takes float32 or bfloat16 x and w of one dtype, "
+            f"got {x.dtype} and {w.dtype}"
+        )
+    if x.ndim != 5 or w.ndim != 5 or w.shape[3] != x.shape[4]:
+        raise ValueError(
+            f"conv3d_valid: x [B,X,Y,Z,Cin] and w [kx,ky,kz,Cin,Cout] "
+            f"expected, got {tuple(x.shape)} and {tuple(w.shape)}"
+        )
+    B, X, Y, Z, cin = x.shape
+    kx, ky, kz, _, cout = w.shape
+    dil = _tuple(dilation, 3)
+    out_sp = [s - d * (k - 1) for s, d, k in zip((X, Y, Z), dil, (kx, ky, kz))]
+    if min(out_sp) <= 0:
+        raise ValueError(f"conv3d_valid: input {tuple(x.shape)} smaller than kernel")
+    if bias is None:
+        bias = torch.zeros(cout, device=x.device, dtype=torch.float32)
+    if bias.dtype != torch.float32 or bias.shape != (cout,):
+        raise TypeError(f"conv3d_valid: bias must be float32 [{cout}]")
+    for name, t in (("x", x), ("w", w), ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"conv3d_valid: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"conv3d_valid: {name} must be contiguous")
+    y = torch.empty((B, *out_sp, cout), device=x.device, dtype=x.dtype)
+    if B == 0:
+        return y
+    fn = CONV3D_VALID.function()
+    # the launch goes to the current device, which must be x's
+    with torch.cuda.device(x.device):
+        rc = fn(
+            _KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), B, X, Y, Z, cin, kx, ky, kz, *dil, cout, int(relu),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"conv3d_valid kernel launch failed: CUDA error {rc}")
+    CONV3D_VALID.launches += 1
+    return y
+
+
+def block_diagonal_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Expand grouped-conv weights ``[*k, Cin/g, Cout]`` to dense
+    block-diagonal ``[*k, Cin, Cout]``: numerically the grouped conv, with
+    the cross-group weights structurally zero."""
+    k = w.shape[:-2]
+    cin_g, cout = w.shape[-2], w.shape[-1]
+    cout_g = cout // groups
+    dense = w.new_zeros((*k, cin_g * groups, cout))
+    for j in range(groups):
+        dense[..., j * cin_g : (j + 1) * cin_g, j * cout_g : (j + 1) * cout_g] = (
+            w[..., :, j * cout_g : (j + 1) * cout_g]
+        )
+    return dense
+
+
+# below this many groups, dense block-diagonal runs instead of a grouped conv
+_GROUPED_DENSE_MAX_EXPANSION = 8
+
+
+def conv_valid(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    stride: Sequence[int] | int = 1,
+    dilation: Sequence[int] | int = 1,
+    groups: int = 1,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Valid convolution, channels-last.
+
+    ``x``: ``[B, *spatial, Cin]``; ``w``: ``[*kspatial, Cin//groups, Cout]``.
+    Returns the result in ``accum_dtype`` with ``b`` added.  Groups up to 8
+    run as block-diagonal dense.  2D runs as 3D with a unit z axis.  Unit
+    stride goes through :func:`conv3d_valid` (K1 on CUDA); a strided conv,
+    or one with more than 8 groups, has no kernel yet and raises on CUDA.
+    """
+    nd = x.ndim - 2
+    stride = _tuple(stride, nd)
+    dilation = _tuple(dilation, nd)
+    if 1 < groups <= _GROUPED_DENSE_MAX_EXPANSION:
+        w = block_diagonal_weights(w, groups)
+        groups = 1
+    if groups == 1 and all(s == 1 for s in stride) and nd in (2, 3):
+        x3, w3, dil3 = x, w, dilation
+        if nd == 2:
+            x3, w3, dil3 = x[..., None, :], w[:, :, None], (*dilation, 1)
+        out = conv3d_valid(
+            x3.contiguous(), w3.to(x.dtype).contiguous(), None, False, dil3
+        )
+        if nd == 2:
+            out = out[..., 0, :]
+        out = out.to(accum_dtype)
+    else:
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                "conv_valid: strided or many-group convs have no CUDA kernel"
+            )
+        conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[nd]
+        perm = (nd + 1, nd) + tuple(range(nd))  # -> [Cout, Cin/g, *k]
+        out = conv(
+            _to_channels_first(x.float()), w.float().permute(perm),
+            stride=stride, dilation=dilation, groups=groups,
+        )
+        out = _to_channels_last(out).to(accum_dtype)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
+
+
+def conv_transpose_torch(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    stride: Sequence[int] | int = 1,
+    padding: Sequence[int] | int = 0,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Transposed convolution with torch ``ConvTranspose{2,3}d`` semantics.
+
+    ``w``: ``[*kspatial, Cin, Cout]`` (the same layout as :func:`conv_valid`).
+    Runs in ``x``'s dtype on CUDA and in float32 on the CPU, and returns
+    ``accum_dtype`` with ``b`` added.
+    """
+    nd = x.ndim - 2
+    conv = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}[nd]
+    work = torch.float32 if x.device.type == "cpu" else x.dtype
+    wt = w.to(work).permute((nd, nd + 1) + tuple(range(nd)))  # [Cin, Cout, *k]
+    out = conv(
+        _to_channels_first(x.to(work)), wt,
+        stride=_tuple(stride, nd), padding=_tuple(padding, nd),
+    )
+    out = _to_channels_last(out).to(accum_dtype)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
+
+
+def max_pool(x: torch.Tensor, kernel: Sequence[int]) -> torch.Tensor:
+    """Max pool with stride = kernel (torch ``MaxPool`` default)."""
+    nd = x.ndim - 2
+    pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[nd]
+    k = _tuple(kernel, nd)
+    return _to_channels_last(pool(_to_channels_first(x), k, k))
+
+
+def batch_norm_inference(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Inference-mode batch norm folded to one multiply-add over the
+    channel (last) axis, as torch ``BatchNorm.eval()`` with running stats."""
+    inv = torch.rsqrt(var.float() + eps) * scale.float()
+    shift = bias.float() - mean.float() * inv
+    return (x.float() * inv + shift).to(x.dtype)
+
+
+def fold_bn_into_conv(
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold inference BN into the preceding conv's weights.
+
+    ``w``: ``[*kspatial, Cin, Cout]``; stats are per-Cout.  Returns the
+    folded weights in ``w``'s dtype and the folded bias in float32."""
+    inv = torch.rsqrt(var.float() + eps) * scale.float()
+    w_f = w.float() * inv  # broadcast over the trailing Cout axis
+    b0 = torch.zeros_like(mean, dtype=torch.float32) if b is None else b.float()
+    b_f = (b0 - mean.float()) * inv + bias.float()
+    return w_f.to(w.dtype), b_f

@@ -1,0 +1,70 @@
+"""Kernel K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) against its plain
+version, on the card.
+
+These tests need an NVIDIA GPU and ``nvcc``; they skip elsewhere.  They import
+no JAX, so they also run where JAX is not installed::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid, conv3d_valid_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (x shape, w shape, dilation): ragged M (not a multiple of 128), Cin 4 and
+# odd, Cout 1 / 16 / 24 / 64 / 80 (ragged N tiles), K tails, 1x1 kernels.
+CASES = [
+    ((2, 11, 9, 7, 4), (3, 3, 2, 4, 16), 1),
+    ((1, 13, 10, 6, 5), (3, 3, 1, 5, 24), 1),
+    ((3, 9, 9, 4, 16), (1, 1, 1, 16, 1), 1),
+    ((1, 12, 12, 5, 32), (3, 3, 2, 32, 64), 1),
+    ((2, 10, 11, 6, 40), (3, 2, 2, 40, 80), 1),
+    ((1, 14, 13, 9, 8), (3, 3, 2, 8, 16), 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_conv3d_valid_matches_plain(cuda, case, dtype):
+    xs, ws, dil = CASES[case]
+    rng = np.random.default_rng(case)
+    k = int(np.prod(ws[:4]))
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal(ws, np.float32) / np.sqrt(k))
+    w = w.to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal(ws[-1:], np.float32)).to(cuda)
+    for relu in (False, True):
+        before = CONV3D_VALID.launches
+        got = conv3d_valid(x, w, b, relu, dil)
+        torch.cuda.synchronize()
+        assert CONV3D_VALID.launches == before + 1
+        want = conv3d_valid_plain(x, w, b, relu, dil)
+        assert got.shape == want.shape and got.dtype == dtype
+        scale = max(1.0, float(want.float().abs().max()))
+        # float32: both sum in float32, in different orders.  bfloat16: both
+        # round the float32 sum once, so they differ by at most one bf16 ulp
+        # (2^-7 relative) where the sums straddle a rounding boundary.
+        tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (case, relu, err, tol)
+
+
+def test_conv3d_valid_rejects_mixed_dtypes(cuda):
+    x = torch.zeros((1, 4, 4, 4, 4), device=cuda)
+    w = torch.zeros((3, 3, 2, 4, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv3d_valid(x, w)

@@ -1,0 +1,92 @@
+"""Shared set-up of the PyTorch port's parity tests: JAX U-Nets with
+non-trivial random weights, and the same weights in the port."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from hcunet_tpu.config import UNetConfig as JaxUNetConfig
+from hcunet_tpu.infer.compile import compile_serving_apply as jax_serving_apply
+from hcunet_tpu.models.unet import UNet as JaxUNet
+from hcunet_tpu_torch.config import UNetConfig
+from hcunet_tpu_torch.infer.compile import compile_serving_apply
+from hcunet_tpu_torch.models.unet import UNet
+from hcunet_tpu_torch.utils.port_jax import unet_state_dict_from_jax_variables
+
+# the two-level net of __graft_entry__.py and test_serving_compile.py
+SMALL = dict(
+    feature_sizes=(8, 16), kernel1=(3, 3, 2), kernel2=(3, 3, 1),
+    upsample_kernel=(4, 4, 2), max_pool_kernel=(2, 2, 1),
+    upsample_stride=(2, 2, 1), groups=1,
+)
+
+
+def randomize(tree, rng, path=()):
+    """Random values for every leaf of a JAX U-Net variable tree of shapes:
+    He-normal kernels, and random biases, BN scale/bias and BN mean/var
+    (``init_unet``'s biases 0, mean 0 and var 1 would make BN folding
+    trivial)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = randomize(v, rng, path + (k,))
+            continue
+        if k.endswith("kernel"):
+            std = np.sqrt(2.0 / np.prod(v.shape[:-1]))
+            v = rng.standard_normal(v.shape) * std
+        elif k in ("scale", "var"):
+            v = rng.random(v.shape) + 0.5
+        else:  # biases and means
+            scale = 0.1 if "BatchNorm_0" in path or k == "mean" else 0.05
+            v = rng.standard_normal(v.shape) * scale
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def jax_unet(config_kwargs, spatial, seed=0):
+    """``(port config, JAX model, JAX variables as numpy)`` for a config.
+
+    The variable tree's shapes come from ``jax.eval_shape`` of the model's
+    init (tracing only: running the init op by op takes tens of seconds on
+    the CPU) and every value from a seeded numpy generator."""
+    jcfg = JaxUNetConfig(**config_kwargs)
+    model = JaxUNet(jcfg)
+    x = jax.ShapeDtypeStruct((1, *spatial, jcfg.in_channels), jnp.float32)
+    shapes = jax.eval_shape(
+        lambda x: model.init(jax.random.PRNGKey(seed), x, train=False), x
+    )
+    rng = np.random.default_rng(seed)
+    variables = {
+        "params": randomize(shapes["params"], rng),
+        "batch_stats": randomize(shapes["batch_stats"], rng),
+    }
+    return UNetConfig(**config_kwargs), model, variables
+
+
+def port_unet(cfg, variables):
+    """The port's UNet holding the JAX variables' weights."""
+    model = UNet(cfg)
+    model.load_state_dict(unet_state_dict_from_jax_variables(variables, cfg))
+    return model.eval()
+
+
+def assert_forwards_match(unet, spatial, batch, atol=5e-5):
+    """Port forward and serving forward against JAX ``apply`` and serving,
+    for ``unet = jax_unet(...)``."""
+    cfg, jmodel, variables = unet
+    x = np.random.default_rng(1).random((batch, *spatial, cfg.in_channels), np.float32)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    want_serving = np.asarray(
+        jax_serving_apply(jmodel, variables, dtype=jnp.float32)(jnp.asarray(x))
+    )
+    model = port_unet(cfg, variables)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    got_serving = compile_serving_apply(model, dtype=torch.float32, device="cpu")(
+        torch.from_numpy(x)
+    ).numpy()
+    assert got.shape == want.shape and got_serving.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    np.testing.assert_allclose(got_serving, want_serving, atol=atol, rtol=0)
+    np.testing.assert_allclose(got_serving, want, atol=atol, rtol=0)
