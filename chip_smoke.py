@@ -9,17 +9,31 @@ toolkit::
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build kernel K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) into ``build/``;
+2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) and K2
+   (``csrc/edt_pass.cu``) into ``build/``, one ``nvcc`` each, together;
 3. hold K1 against its plain version at the 15 valid-conv shapes of the
    production U-Net's serving forward at the tile geometry the port picks
    for this card, plus the TPU probe's case 1, in bfloat16 and float32,
    timing the kernel, the plain version and cuDNN's ``F.conv3d``;
-4. the main path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
+4. slice 1's path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
    at full width (random He-normal weights and random batch-norm statistics
    from a seed) for three requests, checking that every tile batch launched
    K1 15 times, and that the float32 request agrees with a forward built on
    the plain conv;
-5. print one JSON line of kernel rows, the card line, and the result line.
+5. hold K2 against its plain version, exactly, at the instance tile
+   [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
+   1212^2 x 8, and a ragged shape, timing both passes of each;
+6. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
+   from ``Segmenter(use_probability_map=False)``, candidates from
+   ``predict_cell_candidates`` with a full-width ResNet50-FPN ``Detector``
+   (random weights from a seed) on 9 tile positions of 1047^2 x 15 planes,
+   and ``generate_unique_segmentation_mask(backend="device")`` on 4 instance
+   tiles, checking that K2 launched 8 times and K1 15 per tile batch; then
+   the instance stage once more under ``torch.profiler``;
+7. the instance stage on a synthetic blob scene of one full tile: labels
+   with K2 equal to labels with the plain EDT, and >= 90 % of the seeded
+   blobs found;
+8. print one JSON line of kernel rows, the card line, and the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
@@ -41,6 +55,14 @@ H100_F32_FLOPS = 67e12    # float32 outside the tensor cores (TF32 is off)
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
 REQUESTS = [(1152, 1152, 15), (1000, 900, 15), (2304, 2304, 15)]
+BENCH_SCENE = (2304, 2304, 15)
+# host RAM the instance stage sizes its tiles for: >= 16 GB gives the
+# reference's 1212 + 2*56 tiles, 4 of them over the bench scene
+INSTANCE_HOST_RAM = 32 * 2**30
+INSTANCE_TILE = (1323, 1323, 15)
+# K2's check shapes: the main path's instance tile, the TPU probe's two
+# (scripts/probe_edt_device.py) and a ragged one
+EDT_SHAPES = [INSTANCE_TILE, (412, 412, 12), (1212, 1212, 8), (517, 1301, 7)]
 PROBE_CASE_1 = ((6, 494, 494, 3, 128), (3, 3, 2, 128, 128))
 LAYER_NAMES = (
     [f"down{i}.conv{j}" for i in range(4) for j in (1, 2)]
@@ -194,15 +216,17 @@ def run_request(seg, vol, kernel) -> tuple[np.ndarray, float, int, int]:
     return out, sec, launches, peak
 
 
-def profile_request(seg, vol) -> None:
-    """One more ``predict`` under ``torch.profiler``: device time by kernel
-    and the device's busy share of the request's wall time."""
+def profile_device(label: str, fn, kernels) -> None:
+    """Run ``fn()`` once under ``torch.profiler``: device time by kernel, the
+    device's busy share of the wall time, and the share of each kernel in
+    ``kernels`` (``{name: symbol substring}``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        seg.predict(vol)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for ev in prof.key_averages():
@@ -214,17 +238,291 @@ def profile_request(seg, vol) -> None:
         rows.append((us, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print("profile: device time not measured (the profiler saw no device events)")
+        print(f"profile of {label}: device time not measured (no device events)")
         return
-    k1 = sum(r[0] for r in rows if "conv3d_valid_kernel" in r[2])
+    shares = ", ".join(
+        f"{name} {sum(r[0] for r in rows if sym in r[2]) / 1e3:.1f} ms "
+        f"({100 * sum(r[0] for r in rows if sym in r[2]) / busy:.1f}% of device time)"
+        for name, sym in kernels.items()
+    )
     print(
-        f"profile of request {vol.shape[:-1]}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
-        f"{100 * (1 - busy / wall_us):.1f}%), K1 {k1 / 1e3:.1f} ms "
-        f"({100 * k1 / busy:.1f}% of device time)"
+        f"{100 * (1 - busy / wall_us):.1f}%)" + (f", {shares}" if shares else "")
     )
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.2f} ms {count:5d}x  {key[:110]}")
+
+
+def check_edt(shape, dev) -> dict:
+    """K2 against its plain version on one volume: the full per-slice EDT
+    must be equal exactly; the two passes are timed on both.  Returns a
+    row."""
+    from hcunet_tpu_torch.ops.distance import _axis_pass_plain, _dist2, edt, edt_axis_pass, edt_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b = torch.rand(shape, generator=gen, device=dev) > 0.4
+    b[0, 0, :] = False  # background in every slice
+    b[..., -1] = True   # but one slice all foreground: distance 1e6
+    got = edt(b, axes=(0, 1))
+    want = edt_plain(b, axes=(0, 1))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"K2 differs from its plain version at {shape}: {err}")
+    del got, want
+
+    d2 = _dist2(b).contiguous()
+    kernel_ms = cuda_ms(lambda: edt_axis_pass(edt_axis_pass(d2, 0), 1))
+    plain_ms = cuda_ms(lambda: _axis_pass_plain(_axis_pass_plain(d2, 0), 1), reps=1)
+    # each pass reads and writes the float32 volume once
+    t_bytes = 2 * 2 * d2.numel() * 4 / H100_BYTES_PER_S * 1e3
+    # the min-plus form's own floor: an add and a min per (j, k) pair
+    pairs = sum(d2.numel() * shape[ax] for ax in (0, 1))
+    t_minplus = 2 * pairs / H100_F32_FLOPS * 1e3
+    name = "edt_pass[" + "x".join(map(str, shape)) + ",axes01]"
+    print(
+        f"  {name:34s} exact; kernel {kernel_ms:8.3f} ms plain {plain_ms:9.3f} ms "
+        f"bound {t_bytes:6.3f} ms (bytes); min-plus floor {t_minplus:6.3f} ms "
+        f"({pairs:.3e} pairs, {2 * pairs / kernel_ms / 1e9:.1f} TFLOP/s)",
+        flush=True,
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "hcunet_tpu_torch/csrc/edt_pass.cu",
+        "replaces": "scripts/probe_edt_device.py:67",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": t_bytes,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def build_detector(dev):
+    """Full-width ResNet50-FPN ``Detector`` with random weights from the
+    seed: LeCun-normal kernels, the RPN head and box predictor small as in
+    torchvision's init (so that boxes stay boxes), and random batch-norm
+    scales, biases and statistics (the zero-init last BN of each bottleneck
+    would hide its residual branch)."""
+    from hcunet_tpu_torch.config import DetectorConfig
+    from hcunet_tpu_torch.models.detection import Detector
+
+    det = Detector(DetectorConfig(), backbone="resnet50", device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, m in det.named_modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                std = 1.0 / math.sqrt(m.weight[0].numel())
+                if name.startswith("rpn.head"):
+                    std = 0.01
+                elif name.endswith("cls_score"):
+                    std = 0.1
+                elif name.endswith("box_predictor.bbox_pred"):
+                    std = 0.001
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * std)
+                if m.bias is not None:
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return det
+
+
+def check_detector(det, images) -> None:
+    """The detector on the card against the same weights on the CPU, on a
+    small batch: the same number of valid rows per image, and each valid
+    row matched by one of the other side's with the same label, its box
+    within 1e-2 px and its score within 1e-4 (cuDNN's and the CPU's float32
+    convs sum in other orders through ~60 layers, so rows whose scores
+    nearly tie may come out in another order)."""
+    from hcunet_tpu_torch.models.detection import Detector
+
+    cpu = Detector(det.config, backbone="resnet50", device="cpu")
+    cpu.load_state_dict(det.state_dict())
+    got = {k: v.cpu().numpy() for k, v in det.detect(images).items()}
+    want = {k: v.numpy() for k, v in cpu.detect(images).items()}
+    worst_box, worst_score, n_valid = 0.0, 0.0, 0
+    for b in range(images.shape[0]):
+        g, w = got["valid"][b], want["valid"][b]
+        if g.sum() != w.sum():
+            raise AssertionError(f"image {b}: {g.sum()} valid rows on the card, {w.sum()} on the CPU")
+        n_valid += int(w.sum())
+        gb, wb = got["boxes"][b][g], want["boxes"][b][w]
+        # [card row, cpu row] box distance; another label never matches
+        dist = np.abs(gb[:, None, :] - wb[None, :, :]).max(-1)
+        dist[got["labels"][b][g][:, None] != want["labels"][b][w][None, :]] = np.inf
+        match = dist.argmin(1)
+        if len(set(match.tolist())) != len(match):
+            raise AssertionError(f"image {b}: the card's rows do not match the CPU's one to one")
+        worst_box = max(worst_box, float(dist.min(1).max(initial=0)))
+        d_score = np.abs(got["scores"][b][g] - want["scores"][b][w][match])
+        worst_score = max(worst_score, float(d_score.max(initial=0)))
+    print(
+        f"detector on the card vs the CPU on {images.shape}: {n_valid} valid rows matched; "
+        f"max |d box| {worst_box:.3e} px, max |d score| {worst_score:.3e}",
+        flush=True,
+    )
+    if n_valid == 0 or worst_box > 1e-2 or worst_score > 1e-4:
+        raise AssertionError("the detector on the card disagrees with the CPU")
+
+
+def n_instance_tiles(spatial) -> int:
+    """Instance tiles over an [X, Y] plane at ``INSTANCE_HOST_RAM``'s
+    geometry; K2 launches twice (axes 0 and 1) on each."""
+    from hcunet_tpu_torch.core.shapes import calculate_indexes
+    from hcunet_tpu_torch.infer.instance import _instance_tile_geometry
+
+    pad, ev = _instance_tile_geometry(spatial, INSTANCE_HOST_RAM)
+    return math.prod(
+        1 if e >= s else len(calculate_indexes(p, e, s, s))
+        for p, e, s in zip(pad, ev, spatial)
+    )
+
+
+def slice2_path(model, vol, dev, kernels):
+    """Slice 2's path on one volume, with every launch count set to 0 just
+    before it: semantic mask, detection, instance watershed.  Returns the
+    instance stage's arguments (for the profile) and the counts."""
+    from hcunet_tpu_torch.config import WatershedConfig
+    from hcunet_tpu_torch.infer.detect import (
+        collect_cell_candidates,
+        dispatch_cell_candidates,
+        predict_cell_candidates,
+    )
+    from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
+    from hcunet_tpu_torch.infer.serving import Segmenter
+
+    seg = Segmenter(model, use_probability_map=False, dtype=torch.bfloat16, device=dev)
+    det = build_detector(dev)
+    ws = WatershedConfig(backend="device")
+    # the pipeline's normalize (pipeline.py:394-404): (v - 0.5) / 0.5
+    norm = (vol - np.float32(0.5)) / np.float32(0.5)
+    seg.warmup([vol.shape[:-1]])
+    check_detector(det, np.ascontiguousarray(np.moveaxis(norm[:256, :256, :2, :3], 2, 0)))
+    predict_cell_candidates(norm[:1047, :1047, :2][..., [0, 2, 3]], det, device=dev)  # warm
+
+    sec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    mask = seg.predict(norm)
+    sec["segment"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pending = dispatch_cell_candidates(norm[..., [0, 2, 3]], det, device=dev)
+    torch.cuda.synchronize()
+    sec["detect"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand = collect_cell_candidates(pending)
+    sec["merge"] = time.perf_counter() - t0
+    n_det_tiles = len(pending)
+    del pending
+    t0 = time.perf_counter()
+    labels, seeds = generate_unique_segmentation_mask(
+        mask, cand, ws, host_ram_bytes=INSTANCE_HOST_RAM, device=dev
+    )
+    sec["instance"] = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    want_k1 = 15 * n_tile_batches(seg, vol.shape[:-1])
+    want_k2 = 2 * n_instance_tiles(vol.shape[:2])
+    if counts["K1"] != want_k1 or counts["K2"] != want_k2:
+        raise AssertionError(
+            f"slice 2 path launched K1 {counts['K1']} (expected {want_k1}) and "
+            f"K2 {counts['K2']} (expected {want_k2}) times"
+        )
+    if mask.dtype != np.uint8 or mask.shape != vol.shape[:-1]:
+        raise AssertionError(f"bad semantic mask {mask.dtype} {mask.shape}")
+    if len(cand["scores"]) == 0 or not np.isfinite(cand["boxes"]).all():
+        raise AssertionError("the detector gave no finite candidates")
+    if labels.shape != mask.shape or seeds.shape != mask.shape:
+        raise AssertionError(f"bad instance volumes {labels.shape} {seeds.shape}")
+    n_inst = len(np.unique(labels)) - 1
+    print(
+        f"slice 2 path on {vol.shape}: segment {sec['segment']:.3f} s (foreground "
+        f"{mask.mean():.3f}), detect {sec['detect']:.3f} s ({n_det_tiles} tiles dispatched and "
+        f"finished on the card), merge {sec['merge']:.3f} s (host NMS, "
+        f"{len(cand['scores'])} candidates), instance {sec['instance']:.3f} s "
+        f"({n_inst} instances, "
+        f"{len(np.unique(seeds)) - 1} seeds); total {sum(sec.values()):.3f} s; "
+        f"launches K1 {counts['K1']} = 15 x {counts['K1'] // 15} tile batches, K2 "
+        f"{counts['K2']} = 2 x {counts['K2'] // 2} instance tiles; peak device "
+        f"memory {peak / 2**30:.2f} GiB",
+        flush=True,
+    )
+    tile = np.ascontiguousarray(np.moveaxis(norm[:1047, :1047, :, [0, 2, 3]], 2, 0))
+    profile_device(f"detection of one tile {tile.shape}", lambda: det.detect(tile), {})
+    return (mask, cand, ws), counts
+
+
+def blob_scene(rng, shape, spacing=44):
+    """The instance scene of ``tests/test_watershed_parity.py::_instance_scene``
+    at full tile size, its blobs on a jittered grid (so that no two seeds
+    overlap), and a box on each blob."""
+    X, Y, Z = shape
+    xx, yy = np.meshgrid(np.arange(X), np.arange(Y), indexing="ij")
+    zz = np.arange(Z)
+    prob = np.zeros(shape, np.float32)
+    boxes = []
+    for cx in range(spacing, X - spacing, spacing):
+        for cy in range(spacing, Y - spacing, spacing):
+            x0, y0 = cx + rng.uniform(-6, 6), cy + rng.uniform(-6, 6)
+            sl = np.s_[int(x0) - 20 : int(x0) + 20, int(y0) - 20 : int(y0) + 20]
+            d2 = ((xx[sl] - x0) ** 2 + (yy[sl] - y0) ** 2)[..., None] / 60 + (
+                zz - Z / 2
+            ) ** 2 / 8
+            prob[sl] = np.maximum(prob[sl], np.exp(-d2)).astype(np.float32)
+            boxes.append([x0 - 8, y0 - 8, x0 + 8, y0 + 8])
+    prob = np.where(prob < 0.25, 0.0, prob) * 10.0
+    n = len(boxes)
+    cand = {
+        "boxes": np.asarray(boxes, np.float32),
+        "scores": np.full(n, 0.9, np.float32),
+        "labels": np.ones(n, np.int32),
+        "z_level": np.full(n, float(Z // 2), np.float32),
+    }
+    return (prob > 2.5).astype(np.uint8), cand
+
+
+def check_instance_stage(dev):
+    """The instance stage on one full tile of blobs: labels with K2 must
+    equal labels with the plain EDT, and >= 90 % of the seeded blobs must
+    come back as labels."""
+    from hcunet_tpu_torch.config import WatershedConfig
+    from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
+    from hcunet_tpu_torch.ops.distance import edt_plain
+
+    mask, cand = blob_scene(np.random.default_rng(SEED), INSTANCE_TILE)
+    ws = WatershedConfig(backend="device")
+    kw = dict(host_ram_bytes=INSTANCE_HOST_RAM, device=dev)
+    t0 = time.perf_counter()
+    labels, seeds = generate_unique_segmentation_mask(mask, cand, ws, **kw)
+    sec = time.perf_counter() - t0
+    labels_p, seeds_p = generate_unique_segmentation_mask(mask, cand, ws, edt_fn=edt_plain, **kw)
+    if not (np.array_equal(labels, labels_p) and np.array_equal(seeds, seeds_p)):
+        raise AssertionError(
+            f"instance labels with K2 differ from the plain EDT's at "
+            f"{int((labels != labels_p).sum())} voxels"
+        )
+    seeded = set(np.unique(seeds)) - {0}
+    found = seeded & set(np.unique(labels))
+    share = len(found) / max(1, len(seeded))
+    print(
+        f"instance stage on blob scene {INSTANCE_TILE}: labels with K2 == labels "
+        f"with the plain EDT; {len(found)} of {len(seeded)} seeded blobs found "
+        f"({100 * share:.1f}%, need >= 90%); {sec:.3f} s",
+        flush=True,
+    )
+    if share < 0.9:
+        raise AssertionError(f"only {len(found)} of {len(seeded)} seeded blobs found")
 
 
 def main() -> int:
@@ -238,7 +536,9 @@ def main() -> int:
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.infer.serving import Segmenter
     from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+    from hcunet_tpu_torch.csrc import build_all
     from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid_plain
+    from hcunet_tpu_torch.ops.distance import EDT_PASS
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -252,9 +552,13 @@ def main() -> int:
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
     )
 
-    # phase 2: build K1
-    CONV3D_VALID.function()
-    print(f"K1 built by nvcc for sm_90a in {CONV3D_VALID.build_seconds:.1f} s")
+    # phase 2: build K1 and K2, one nvcc each, together
+    t0 = time.perf_counter()
+    build_all([CONV3D_VALID, EDT_PASS])
+    print(
+        f"K1 and K2 built by nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
+        f"({CONV3D_VALID.build_seconds:.1f} s and {EDT_PASS.build_seconds:.1f} s each)"
+    )
 
     # phase 3: K1 against its plain version at the main path's shapes
     cfg = UNetConfig.production_3d()
@@ -280,7 +584,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     del layers, cases
 
-    # phase 4: the main path
+    # phase 4: slice 1's path
     rng = np.random.default_rng(SEED)
     vols = [rng.random((*sp, cfg.in_channels), dtype=np.float32) for sp in REQUESTS]
     seg.warmup([REQUESTS[0]])
@@ -315,12 +619,50 @@ def main() -> int:
     )
     if not d32 <= 1e-4:
         raise AssertionError(f"float32 K1 path differs from plain path by {d32}")
-    profile_request(seg, vols[-1])
+    profile_device(
+        f"request {REQUESTS[-1]}", lambda: seg.predict(vols[-1]),
+        {"K1": "conv3d_valid_kernel"},
+    )
+    del vols, seg32, plain_apply
+    torch.cuda.empty_cache()
 
-    # phase 5: results
+    # phase 5: K2 against its plain version at the main path's shapes
+    print("K2 vs plain (exact), axes (0, 1):")
+    k2_rows = []
+    for shape in EDT_SHAPES:
+        k2_rows.append(check_edt(shape, dev))
+        torch.cuda.empty_cache()
+
+    # phase 6: slice 2's path on the bench scene
+    scene = np.random.default_rng(SEED).random((*BENCH_SCENE, cfg.in_channels), np.float32)
+    (mask, cand, ws), counts = slice2_path(
+        model, scene, dev, {"K1": CONV3D_VALID, "K2": EDT_PASS}
+    )
+    from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
+
+    profile_device(
+        "the instance stage",
+        lambda: generate_unique_segmentation_mask(
+            mask, cand, ws, host_ram_bytes=INSTANCE_HOST_RAM, device=dev
+        ),
+        {"K2": "edt_pass_kernel"},
+    )
+    del scene, mask, cand
+    torch.cuda.empty_cache()
+
+    # phase 7: the instance stage with K2 against the plain EDT
+    check_instance_stage(dev)
+
+    # phase 8: results
     for row in rows:
-        row["launches"] = total
-    print(f"main path: {total} K1 launches; total {time.perf_counter() - t_start:.1f} s")
+        row["launches"] = total + counts["K1"]
+    for row in k2_rows:
+        row["launches"] = counts["K2"]
+    print(
+        f"main path: slice 1 {total} K1 launches; slice 2 {counts['K1']} K1 and "
+        f"{counts['K2']} K2 launches; total {time.perf_counter() - t_start:.1f} s"
+    )
+    rows += k2_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

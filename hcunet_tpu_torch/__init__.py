@@ -7,6 +7,12 @@ neither it nor JAX.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
-from hcunet_tpu_torch.config import TileConfig, UNetConfig, auto_tile_config
+from hcunet_tpu_torch.config import (
+    DetectorConfig,
+    TileConfig,
+    UNetConfig,
+    WatershedConfig,
+    auto_tile_config,
+)
 
-__all__ = ["TileConfig", "UNetConfig", "auto_tile_config"]
+__all__ = ["DetectorConfig", "TileConfig", "UNetConfig", "WatershedConfig", "auto_tile_config"]

@@ -94,6 +94,23 @@ class UNetConfig:
         )
 
 
+@dataclass(frozen=True)
+class DetectorConfig:
+    """Faster R-CNN style detector (``hcat/rcnn.py:7-21`` contract)."""
+
+    num_classes: int = 3
+    max_detections: int = 500
+    min_size: int = 256
+    anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    rpn_pre_nms_top_n: int = 1000
+    rpn_post_nms_top_n: int = 512
+    rpn_nms_thresh: float = 0.7
+    box_score_thresh: float = 0.05
+    box_nms_thresh: float = 0.5
+    roi_align_output: int = 7
+
+
 # ---------------------------------------------------------------------------
 # Inference configs
 # ---------------------------------------------------------------------------
@@ -110,6 +127,42 @@ class TileConfig:
     pad: Tuple[int, ...] = (128, 128, 10)
     batch: int = 4
     reference_exact_grid: bool = False
+
+
+@dataclass(frozen=True)
+class WatershedConfig:
+    """Instance segmentation constants (``hcat/__init__.py:18-30``).
+
+    ``backend`` selects the per-tile implementation:
+
+    * ``"fused"`` (default) — one native call per tile
+      (``native/watershed.cpp:instance_tile3d``): virtual z-expansion,
+      chamfer mask dilation, flood.
+    * ``"materialized"`` — builds the z-expanded float64 volumes like the
+      reference (``hcat/segment.py:444-450``) and floods them.
+    * ``"device"`` — everything on the card
+      (``ops/watershed_device.py`` bounded-iteration minimax-path
+      relaxation, ``device_iters`` steps).  Approximate on plateau
+      tie-breaks.
+
+    The port runs ``"device"`` only so far; the two host backends need the
+    port's own binding of the ``native/`` flood.
+    """
+
+    connectivity: int = 1
+    compactness: float = 0.01
+    expand_mask: int = 15
+    expand_z: int = 5
+    z_tolerance: int = 2
+    mask_prob_threshold: float = 0.5
+    cell_prob_threshold: float = 0.25
+    seed_background_below: float = 0.15
+    distance_floor: float = 0.2
+    backend: str = "fused"
+    device_iters: int = 96
+    # host threads flooding tiles concurrently for the host backends;
+    # 0 = auto (cpu_count - 1, min 1); 1 = serial.
+    tile_workers: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,17 @@ def build(source: str) -> tuple[Path, float]:
     return out, time.perf_counter() - t0
 
 
+def build_all(kernels) -> None:
+    """Build and load every kernel of ``kernels`` at once: one ``nvcc`` per
+    source, all started together (each waits in a thread on its compiler)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    kernels = list(kernels)
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+        for fut in [pool.submit(k.function) for k in kernels]:
+            fut.result()
+
+
 class CudaKernel:
     """One kernel library: built and loaded at first use, with a launch count.
 

@@ -1,0 +1,143 @@
+"""Tiled 2D detection over a z-stack — hot loop #2 (twin of
+``hcunet_tpu/infer/detect.py``; ``hcat/segment.py:139-218``).
+
+All z planes of one tile position form one batch, so there is one
+``Detector.detect`` call per tile position; per-tile results merge into the
+global candidate list with NMS (``utils.merge_cell_candidates``).  The tile
+grid (``DET_EVAL``, ``DET_PAD``, ``calculate_indexes``) is the JAX
+package's.
+
+Box convention: the detector emits torchvision-style ``(x1, y1, x2, y2)``
+with x the width axis (array dim 1 of an ``[H, W]`` tile); candidates store
+boxes in the volume's array axes (dim0, dim1), so the axes are swapped at the
+boundary: detector ``(x, y)`` → array ``(det_y + tile_x0, det_x + tile_y0)``.
+
+:func:`dispatch_cell_candidates` enqueues each tile's work on the current
+CUDA stream and returns without copying results back; the detector's NMS
+steps read one convergence flag each from the card.
+:func:`collect_cell_candidates` copies the results to the host (where it
+waits for the card) and merges them.  The multi-device ``ShardedDetect``
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from hcunet_tpu_torch.config import resolve_device
+from hcunet_tpu_torch.core.shapes import calculate_indexes
+from hcunet_tpu_torch.infer.candidates import empty_candidates, merge_cell_candidates
+
+DET_PAD = (24, 24)
+# the JAX package's tile core; calculate_indexes cuts 1000 + 2*24 - 1 =
+# 1047-wide windows
+DET_EVAL = (1000, 1000)
+
+
+def dispatch_cell_candidates(
+    image,
+    detector,
+    eval_size=DET_EVAL,
+    pad=DET_PAD,
+    device=None,
+):
+    """Enqueue the per-tile detection work.
+
+    ``image``: ``[X, Y, Z, C>=3]`` (channels-last, normalized), host numpy or
+    a tensor already on the card — then the detector's channels are sliced
+    there and detection costs no second host→device copy.  ``device`` (CUDA
+    unless given) must be the detector's.  Returns an opaque list of
+    in-flight tiles for :func:`collect_cell_candidates`."""
+    dev = resolve_device(device)
+    if dev != detector.device:
+        raise ValueError(f"detector is on {detector.device}, asked to run on {dev}")
+    X, Y, Z = image.shape[:3]
+    eval_size = [min(e, s) for e, s in zip(eval_size, (X, Y))]
+
+    # whole-axis window whenever a tiled grid can't fit (axis < eval+2*pad)
+    if X < eval_size[0] + 2 * pad[0]:
+        x_ind = [[0, X]]
+    else:
+        x_ind = calculate_indexes(pad[0], eval_size[0], X, X)
+    if Y < eval_size[1] + 2 * pad[1]:
+        y_ind = [[0, Y]]
+    else:
+        y_ind = calculate_indexes(pad[1], eval_size[1], Y, Y)
+
+    pending = []
+    for x0, x1 in x_ind:
+        for y0, y1 in y_ind:
+            tile = image[x0:x1, y0:y1, :, :3]  # [H, W, Z, 3]
+            if isinstance(tile, np.ndarray):
+                batch = torch.from_numpy(
+                    np.ascontiguousarray(np.moveaxis(tile, 2, 0), np.float32)
+                )
+            else:
+                batch = tile.movedim(2, 0).float()
+            out = detector.detect(batch)  # [Z, H, W, 3] planes as the batch
+            pending.append((x0, x1, y0, y1, Z, out))
+    return pending
+
+
+def collect_cell_candidates(
+    pending,
+    initial_coords=(0, 0),
+    score_floor: float = 0.0,
+    progress=None,
+) -> Dict[str, np.ndarray]:
+    """Copy the dispatched detections to the host and NMS-merge them into
+    the global candidate list (``utils.merge_cell_candidates`` semantics)."""
+    candidates = None
+    for x0, x1, y0, y1, Z, out in pending:
+        boxes = out["boxes"].cpu().numpy()  # [Z, K, 4] detector axes
+        scores = out["scores"].cpu().numpy()
+        labels = out["labels"].cpu().numpy()
+        valid = out["valid"].cpu().numpy() & (scores > score_floor)
+
+        for z in range(Z):
+            v = valid[z]
+            if not v.any():
+                continue
+            det = boxes[z][v]
+            # detector (x=W=dim1, y=H=dim0) -> array axes (dim0, dim1)
+            arr_boxes = np.stack([det[:, 1], det[:, 0], det[:, 3], det[:, 2]], axis=1)
+            new = {
+                "boxes": arr_boxes.astype(np.float32),
+                "scores": scores[z][v].astype(np.float32),
+                "labels": labels[z][v].astype(np.int32),
+                "z_level": np.full(v.sum(), float(z), np.float32),
+            }
+            candidates = merge_cell_candidates(
+                candidates, new,
+                initial_coords=(x0 + initial_coords[0], y0 + initial_coords[1]),
+            )
+        if progress:
+            progress(f"detect tile [{x0}:{x1}, {y0}:{y1}]")
+    return candidates if candidates is not None else empty_candidates()
+
+
+def predict_cell_candidates(
+    image,
+    detector,
+    eval_size=DET_EVAL,
+    pad=DET_PAD,
+    initial_coords=(0, 0),
+    score_floor: float = 0.0,
+    progress=None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """``image``: ``[X, Y, Z, C>=3]`` volume (channels-last, already
+    normalized; the pipeline passes channels (0, 2, 3) like
+    ``hcat/main.py:99``); ``detector``: a
+    :class:`~hcunet_tpu_torch.models.detection.Detector` on ``device``
+    (CUDA unless given).  Returns the merged candidate dict with boxes in
+    array axes (x=dim0, y=dim1), plus per-box ``z_level``."""
+    return collect_cell_candidates(
+        dispatch_cell_candidates(image, detector, eval_size, pad, device),
+        initial_coords=initial_coords,
+        score_floor=score_floor,
+        progress=progress,
+    )

@@ -1,5 +1,5 @@
-"""Kernel K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) against its plain
-version, on the card.
+"""Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) and K2
+(``csrc/edt_pass.cu``) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; they skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed::
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid, conv3d_valid_plain
+from hcunet_tpu_torch.ops.distance import EDT_PASS, edt, edt_axis_pass, edt_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +69,47 @@ def test_conv3d_valid_rejects_mixed_dtypes(cuda):
     w = torch.zeros((3, 3, 2, 4, 8), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         conv3d_valid(x, w)
+
+
+# (shape, axes): n = 1; n not a multiple of the 128-wide j block; n above
+# the 512-long staged k segment; rows not a multiple of the 16-row block;
+# axis 0 (rows strided in memory), axis 1 and the last axis (contiguous rows)
+EDT_CASES = [
+    ((1, 9, 3), (0, 1)),
+    ((37, 20, 3), (0, 1)),
+    ((700, 45, 2), (0, 1)),
+    ((33, 1100, 5), (1,)),
+    ((19, 23, 131), (2,)),
+    ((129, 300), None),
+]
+
+
+@pytest.mark.parametrize("case", range(len(EDT_CASES)))
+def test_edt_pass_equals_plain_exactly(cuda, case):
+    shape, axes = EDT_CASES[case]
+    rng = np.random.default_rng(case)
+    b = torch.from_numpy(rng.random(shape) > 0.3).to(cuda)
+    n_axes = len(shape) if axes is None else len(axes)
+    before = EDT_PASS.launches
+    got = edt(b, axes=axes)
+    torch.cuda.synchronize()
+    assert EDT_PASS.launches == before + n_axes
+    want = edt_plain(b, axes=axes)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_edt_all_foreground_slice_is_1e6(cuda):
+    b = torch.ones((50, 600, 3), dtype=torch.bool, device=cuda)
+    b[:, :, 1] = False
+    got = edt(b, axes=(0, 1))
+    assert torch.equal(got[..., 0], torch.full_like(got[..., 0], 1e6))
+    assert float(got[..., 1].abs().max()) == 0.0
+    assert torch.equal(got, edt_plain(b, axes=(0, 1)))
+
+
+def test_edt_axis_pass_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        edt_axis_pass(torch.zeros((4, 4), device=cuda, dtype=torch.float64), 0)
+    with pytest.raises(ValueError):
+        edt_axis_pass(torch.zeros((4, 6), device=cuda).t(), 0)

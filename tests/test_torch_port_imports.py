@@ -9,15 +9,19 @@ import numpy as np
 import pytest
 import torch
 
-from hcunet_tpu_torch.config import UNetConfig, resolve_device
+from hcunet_tpu_torch.config import DetectorConfig, UNetConfig, WatershedConfig, resolve_device
 from hcunet_tpu_torch.infer.compile import compile_serving_apply
+from hcunet_tpu_torch.infer.detect import predict_cell_candidates
+from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
 from hcunet_tpu_torch.infer.serving import Segmenter
 from hcunet_tpu_torch.infer.tiling import (
     predict_segmentation_mask,
     predict_segmentation_mask_reference_grid,
 )
+from hcunet_tpu_torch.models.detection import Detector
 from hcunet_tpu_torch.models.unet import init_unet
 from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid
+from hcunet_tpu_torch.ops.distance import EDT_PASS, edt
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +35,7 @@ leaked = sorted(k for k in sys.modules
                 if k == "jax" or k.startswith(("jax.", "jaxlib", "flax", "hcunet_tpu.", "hcat"))
                 or k == "hcunet_tpu")
 print(len(names), leaked)
-assert len(names) >= 15, names
+assert len(names) >= 27, names
 assert not leaked, leaked
 """
 
@@ -106,3 +110,56 @@ def test_segmenter_mesh_and_checkpoint_not_ported():
         Segmenter(model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         Segmenter.from_checkpoint("model.hcunet")
+
+
+_SMALL_DET = DetectorConfig(rpn_pre_nms_top_n=32, rpn_post_nms_top_n=8, max_detections=4)
+_CAND = {
+    "boxes": np.asarray([[4, 4, 12, 12]], np.float32),
+    "scores": np.asarray([0.9], np.float32),
+    "labels": np.asarray([1], np.int32),
+    "z_level": np.asarray([1.0], np.float32),
+}
+
+
+@pytest.mark.parametrize(
+    "entry", ["detector", "predict_cell_candidates", "generate_unique_segmentation_mask"]
+)
+def test_slice2_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
+    det_cpu = Detector(_SMALL_DET, backbone="small", device="cpu")
+    vol = np.zeros((64, 64, 2, 3), np.float32)
+    mask = np.zeros((16, 16, 3), np.uint8)
+    mask[2:14, 2:14] = 1
+    ws = WatershedConfig(backend="device", expand_mask=1, device_iters=4)
+    calls = {
+        "detector": lambda **kw: Detector(_SMALL_DET, backbone="small", **kw),
+        "predict_cell_candidates": lambda **kw: predict_cell_candidates(
+            vol, det_cpu, **kw
+        ),
+        "generate_unique_segmentation_mask": lambda **kw: generate_unique_segmentation_mask(
+            mask, _CAND, ws, **kw
+        ),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry](device="cuda")
+    calls[entry](device="cpu")  # the CPU only when asked for
+
+
+def test_edt_takes_plain_version_only_on_cpu():
+    b = torch.ones((6, 5, 2))
+    b[0, 0] = 0
+    before = EDT_PASS.launches
+    assert edt(b, axes=(0, 1)).shape == (6, 5, 2)
+    assert EDT_PASS.launches == before
+    with pytest.raises(ValueError, match="no kernel"):
+        edt(b.to("meta"), axes=(0, 1))
+
+
+@pytest.mark.parametrize("backend", ["fused", "materialized"])
+def test_host_watershed_backends_not_ported(backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        generate_unique_segmentation_mask(
+            np.zeros((8, 8, 2), np.uint8), _CAND, WatershedConfig(backend=backend),
+            device="cpu",
+        )
