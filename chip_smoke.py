@@ -9,42 +9,64 @@ toolkit::
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
-2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) and K2
-   (``csrc/edt_pass.cu``) into ``build/``, one ``nvcc`` each, together;
+2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
+   (``csrc/edt_pass.cu``) and K3 (``csrc/dot_blocked.cu``) into ``build/``,
+   one ``nvcc`` each, all together, and the host flood
+   (``csrc/watershed_host.cpp``) with ``g++`` beside them;
 3. hold K1 against its plain version at the 15 valid-conv shapes of the
    production U-Net's serving forward at the tile geometry the port picks
    for this card, plus the TPU probe's case 1, in bfloat16 and float32,
    timing the kernel, the plain version and cuDNN's ``F.conv3d``;
-4. slice 1's path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
+4. hold K3 against its plain version at the TPU probe's two shapes and at
+   the GEMM shape (M, K, N) of each of the 15 K1 layers (a random dense A),
+   in bfloat16 and float32, timing the kernel, the plain version and
+   ``torch.matmul``, and print K3's time over K1's per layer;
+5. slice 1's path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
    at full width (random He-normal weights and random batch-norm statistics
    from a seed) for three requests, checking that every tile batch launched
    K1 15 times, and that the float32 request agrees with a forward built on
    the plain conv;
-5. hold K2 against its plain version, exactly, at the instance tile
+6. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
    1212^2 x 8, and a ragged shape, timing both passes of each;
-6. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
+7. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
    from ``Segmenter(use_probability_map=False)``, candidates from
    ``predict_cell_candidates`` with a full-width ResNet50-FPN ``Detector``
    (random weights from a seed) on 9 tile positions of 1047^2 x 15 planes,
    and ``generate_unique_segmentation_mask(backend="device")`` on 4 instance
    tiles, checking that K2 launched 8 times and K1 15 per tile batch; then
    the instance stage once more under ``torch.profiler``;
-7. the instance stage on a synthetic blob scene of one full tile: labels
+8. the instance stage on a synthetic blob scene of one full tile: labels
    with K2 equal to labels with the plain EDT, and >= 90 % of the seeded
    blobs found;
-8. print one JSON line of kernel rows, the card line, and the result line.
+9. slice 3's path, ``analyze`` on the JAX bench's pipeline scene (1536 x
+   1536 x 12, uint16, 160 blob cells; ``numchunks=3``, the auto tile
+   geometry, the uint16 transfer, the ``"fused"`` host flood): a warm-up
+   of the device stages on one chunk, a timed run (K1 15 launches per tile
+   batch), a resume from its journal
+   (K1 0 launches, the same cells), a float32-transfer run without overlap
+   under ``torch.profiler`` whose mask the uint16 run's must match within
+   one half quantum, and the ``"fused"`` and ``"materialized"`` backends on
+   one chunk's map, which must give equal labels;
+10. print one JSON line of kernel rows, the card line, and the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +86,15 @@ INSTANCE_TILE = (1323, 1323, 15)
 # (scripts/probe_edt_device.py) and a ragged one
 EDT_SHAPES = [INSTANCE_TILE, (412, 412, 12), (1212, 1212, 8), (517, 1301, 7)]
 PROBE_CASE_1 = ((6, 494, 494, 3, 128), (3, 3, 2, 128, 128))
+# K3's TPU probe shapes (scripts/probe_pallas_dot.py:78-81): x [B, X, Y, K], N
+DOT_PROBE_CASES = [("probe_case_1", (12, 492, 494, 768), 384),
+                   ("probe_case_2", (6, 492, 494, 2304), 128)]
+# a layer GEMM's dense A is cut into slices of at most this many elements
+# (the largest, up2.conv1, is 1.3e10); one A slice is reused for all of them
+DOT_SLICE_ELEMS = 2**31
+# the JAX bench's pipeline scene (hcunet_tpu/benchmarks.py:498-499)
+PIPELINE_SCENE = (1536, 1536, 12)
+PIPELINE_CELLS = 160
 LAYER_NAMES = (
     [f"down{i}.conv{j}" for i in range(4) for j in (1, 2)]
     + [f"up{i}.conv{j}" for i in range(3) for j in (1, 2)]
@@ -216,16 +247,16 @@ def run_request(seg, vol, kernel) -> tuple[np.ndarray, float, int, int]:
     return out, sec, launches, peak
 
 
-def profile_device(label: str, fn, kernels) -> None:
+def profile_device(label: str, fn, kernels):
     """Run ``fn()`` once under ``torch.profiler``: device time by kernel, the
     device's busy share of the wall time, and the share of each kernel in
-    ``kernels`` (``{name: symbol substring}``)."""
+    ``kernels`` (``{name: symbol substring}``).  Returns ``fn()``'s result."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -239,7 +270,7 @@ def profile_device(label: str, fn, kernels) -> None:
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"profile of {label}: device time not measured (no device events)")
-        return
+        return result
     shares = ", ".join(
         f"{name} {sum(r[0] for r in rows if sym in r[2]) / 1e3:.1f} ms "
         f"({100 * sum(r[0] for r in rows if sym in r[2]) / busy:.1f}% of device time)"
@@ -252,6 +283,7 @@ def profile_device(label: str, fn, kernels) -> None:
     )
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.2f} ms {count:5d}x  {key[:110]}")
+    return result
 
 
 def check_edt(shape, dev) -> dict:
@@ -524,6 +556,284 @@ def check_instance_stage(dev):
     if share < 0.9:
         raise AssertionError(f"only {len(found)} of {len(seeded)} seeded blobs found")
 
+def check_dot(name, x_shape, n, dtype, dev, pieces=None) -> dict:
+    """K3 against its plain version on ``x [*x_shape] @ w [K, n]``; returns a
+    row.  ``pieces``: row counts of the A slices that make up the whole
+    product; each slice is one launch over the same A (``x_shape`` holds one
+    slice), and the times are those of the whole product."""
+    from hcunet_tpu_torch.ops.dot import dot_blocked, dot_blocked_plain
+
+    K = x_shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(x_shape, generator=gen, device=dev, dtype=dtype)
+    w = (torch.randn((K, n), generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+    got = dot_blocked(x, w)
+    want = dot_blocked_plain(x, w)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.float().abs().max()))
+    # as for K1: float32 sums in other orders; bf16 rounds the sum once
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    if pieces is None:
+        parts = [x]
+    else:
+        parts = [x[:, :, :p] for p in pieces]
+
+    def whole(fn):
+        return lambda: [fn(p, w) for p in parts]
+
+    kernel_ms = cuda_ms(whole(dot_blocked))
+    plain_ms = cuda_ms(whole(dot_blocked_plain))
+    library_ms = cuda_ms(whole(torch.matmul))
+    M = sum(p.numel() // K for p in parts)
+    es = x.element_size()
+    flops = 2.0 * M * K * n
+    nbytes = (M * K + K * n + M * n) * es
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    row = {
+        "name": f"dot_blocked[{name},{dt}]",
+        "route": "cuda",
+        "source": "hcunet_tpu_torch/csrc/dot_blocked.cu",
+        "replaces": "scripts/probe_pallas_dot.py:35",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+    print(
+        f"  {row['name']:34s} (M,K,N)=({M},{K},{n}) in {len(parts)} launch(es) err "
+        f"{err:.3e} (tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
+        f"matmul {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}, "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {nbytes / kernel_ms / 1e6:.0f} GB/s)",
+        flush=True,
+    )
+    if not err <= tol:
+        raise AssertionError(f"{row['name']}: max error {err} > tolerance {tol}")
+    return row
+
+
+def dot_phase(gemms, k1_rows, dev) -> list:
+    """K3 at the TPU probe's shapes and at each K1 layer's GEMM shape, in
+    bfloat16 and float32; prints K3's time over K1's per layer."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"K3 vs plain, {dtype}:")
+        for name, x_shape, n in DOT_PROBE_CASES:
+            rows.append(check_dot(name, x_shape, n, dtype, dev))
+            torch.cuda.empty_cache()
+        for name, (M, K, N) in zip(LAYER_NAMES, gemms):
+            per = max(1, min(M, DOT_SLICE_ELEMS // K))
+            pieces = [per] * (M // per) + ([M % per] if M % per else [])
+            rows.append(check_dot(name, (1, 1, per, K), N, dtype, dev, pieces))
+            torch.cuda.empty_cache()
+    k1 = {r["name"]: r["ms"] for r in k1_rows}
+    for dt in ("bf16", "f32"):
+        print(f"K3 / K1 per layer, {dt} (K3: the product alone, on a dense A; K1: the conv):")
+        tot1 = tot3 = 0.0
+        for row in rows:
+            m = re.fullmatch(rf"dot_blocked\[(.+),{dt}\]", row["name"])
+            if not m or m.group(1) not in LAYER_NAMES:
+                continue
+            t1 = k1[f"conv3d_valid[{m.group(1)},{dt}]"]
+            tot1, tot3 = tot1 + t1, tot3 + row["ms"]
+            print(f"  {m.group(1):12s} K1 {t1:8.3f} ms  K3 {row['ms']:8.3f} ms  K3/K1 {row['ms'] / t1:.3f}")
+        print(f"  15 layers    K1 {tot1:8.3f} ms  K3 {tot3:8.3f} ms  K3/K1 {tot3 / tot1:.3f}")
+    return rows
+
+
+def pipeline_scene(X, Y, Z, n_cells, seed=0):
+    """The JAX bench's pipeline scene (``hcunet_tpu/benchmarks.py:315
+    _blob_scene``): a 4-channel uint16 volume of gaussian-blob cells, and its
+    truth map."""
+    rng = np.random.default_rng(seed)
+    prob = np.zeros((X, Y, Z), np.float32)
+    r = 18
+    zz = (np.arange(Z) - Z // 2).astype(np.float32) ** 2 / 12.0
+    for _ in range(n_cells):
+        x0 = int(rng.uniform(r, X - r))
+        y0 = int(rng.uniform(r, Y - r))
+        xs, ys = slice(x0 - r, x0 + r), slice(y0 - r, y0 + r)
+        gx = (np.arange(x0 - r, x0 + r) - x0).astype(np.float32) ** 2
+        gy = (np.arange(y0 - r, y0 + r) - y0).astype(np.float32) ** 2
+        g = np.exp(-(gx[:, None, None] + gy[None, :, None]) / 90.0 - zz[None, None, :])
+        prob[xs, ys] = np.maximum(prob[xs, ys], g)
+    vol = np.stack([prob * s for s in (0.9, 1.0, 0.95, 0.9)], axis=-1) + rng.normal(
+        0, 0.01, (X, Y, Z, 4)
+    ).astype(np.float32)
+    return (vol.clip(0, 1) * 65535.0 + 0.5).astype(np.uint16), prob
+
+
+def unet_tile_batches(spatial, tile_cfg) -> int:
+    """Tile batches ``predict_segmentation_mask`` runs over one volume."""
+    ev = [min(e, s) for e, s in zip(tile_cfg.eval_size, spatial)]
+    tiles = math.prod(-(-s // e) for s, e in zip(spatial, ev))
+    return -(-tiles // tile_cfg.batch)
+
+
+class ChunkLog(logging.Handler):
+    """Collects the pipeline's per-chunk candidate and cell counts."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def emit(self, record):
+        m = re.match(r"(chunk_\d+_\d+)(?: done)?: (\d+) (candidates|cells)", record.getMessage())
+        if m:
+            self.counts.setdefault(m.group(1), {})[m.group(3)] = int(m.group(2))
+
+
+def analyze_phase(model, dev, kernels) -> dict:
+    """Slice 3's path: ``analyze`` on the JAX bench's pipeline scene.
+    Returns the timed run's launch counts."""
+    from hcunet_tpu_torch import PipelineConfig, analyze, auto_tile_config
+    from hcunet_tpu_torch.config import device_hbm_bytes
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer.detect import predict_cell_candidates
+    from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
+    from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+
+    ucfg = model.config
+    apply = compile_serving_apply(model, dtype=torch.bfloat16, device=dev)
+    det = build_detector(dev)
+    cfg = PipelineConfig(
+        numchunks=3, unet=ucfg, tiles=auto_tile_config(ucfg, hbm_bytes=device_hbm_bytes(dev)),
+        prob_transfer_dtype="uint16",
+    )
+    vol, _truth = pipeline_scene(*PIPELINE_SCENE, PIPELINE_CELLS, seed=SEED)
+    mvx = math.prod(PIPELINE_SCENE) / 1e6
+    edges = np.linspace(0, PIPELINE_SCENE[0], cfg.numchunks).astype(int)
+    chunk = (int(edges[1] - edges[0]), int(edges[1] - edges[0]), PIPELINE_SCENE[2])
+    want_k1 = 15 * unet_tile_batches(chunk, cfg.tiles) * (cfg.numchunks - 1) ** 2
+    log = ChunkLog()
+    logging.getLogger("hcunet_tpu_torch.infer.pipeline").addHandler(log)
+    root = tempfile.mkdtemp(prefix="chip_smoke_analyze_")
+    # bit-reproducible device runs, so that the transfer check can hold the
+    # uint16 and float32 runs to each other
+    torch.backends.cudnn.deterministic = True
+
+    def run(c, work, volume=vol, detector=det, **kw):
+        return analyze(volume=volume, unet_apply=apply, detector=detector, cfg=c,
+                       work_dir=os.path.join(root, work), fit_cochlea=False, device=dev, **kw)
+
+    try:
+        print(f"slice 3 path: analyze on {vol.shape} {vol.dtype}, {cfg.tiles}, "
+              f"{(cfg.numchunks - 1) ** 2} chunks of {chunk}", flush=True)
+        # the warm run: the device stages on one chunk of the timed run's
+        # shape, so that every shape it meets is built and cached: analyze
+        # on the chunk alone (numchunks=2 cuts none) without the detector,
+        # which leaves the flood nothing to do, then the detector on it
+        x = torch.from_numpy(vol[: chunk[0], : chunk[1]].astype(np.float32)).to(dev)
+        x = ((x / 65536.0 - 0.5) / 0.5)[None]  # the pipeline's normalize
+        t0 = time.perf_counter()
+        run(dataclasses.replace(cfg, numchunks=2), "warm", vol[: chunk[0], : chunk[1]], None)
+        predict_cell_candidates(x[0][..., list(cfg.detection_channels)], det, device=dev)
+        warm_s = time.perf_counter() - t0
+        log.counts.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = run(cfg, "timed")
+        wall = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(
+            f"analyze (uint16 transfer, overlap on): wall {wall:.3f} s, {mvx / wall:.3f} MVx/s "
+            f"({mvx:.1f} MVx; warm-up on one chunk {warm_s:.3f} s); stage seconds "
+            f"{ {k: round(v, 3) for k, v in res.stage_seconds.items()} }; stage bytes "
+            f"{res.stage_bytes}; peak device memory {peak / 2**30:.2f} GiB; launches {counts} "
+            f"(K1 15 x {counts['K1'] // 15} tile batches); cells {len(res.cells)}; per chunk "
+            f"{dict(sorted(log.counts.items()))}",
+            flush=True,
+        )
+        if counts["K1"] != want_k1:
+            raise AssertionError(f"analyze launched K1 {counts['K1']} times, expected {want_k1}")
+        if res.mask.shape != vol.shape[:-1] or not np.isfinite(res.mask).all():
+            raise AssertionError(f"bad mask {res.mask.shape}")
+        if res.unique_mask.shape != vol.shape[:-1] or res.unique_mask.dtype != np.int32:
+            raise AssertionError(f"bad instances {res.unique_mask.dtype} {res.unique_mask.shape}")
+
+        # resume from the timed run's journal: every chunk cached
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        again = run(cfg, "timed")
+        resume_s = time.perf_counter() - t0
+        k1_again = kernels["K1"].launches
+        same = [(c.unique_id, c.center, c.volume) for c in again.cells] == [
+            (c.unique_id, c.center, c.volume) for c in res.cells
+        ]
+        print(f"resume from the journal: {resume_s:.3f} s, K1 launches {k1_again}, "
+              f"same {len(again.cells)} cells: {same}", flush=True)
+        if k1_again != 0 or not same or not np.array_equal(again.unique_mask, res.unique_mask):
+            raise AssertionError("resume recomputed a chunk or returned other cells")
+        del again
+
+        # is the device path bit-reproducible?  The U-Net on one chunk, twice
+        post = (cfg.gaussian_sigma, cfg.prob_floor, cfg.prob_scale)
+        p1, p2 = (predict_segmentation_mask(apply, x, ucfg, cfg.tiles, use_probability_map=True,
+                                            postprocess=post, device=dev) for _ in range(2))
+        reproducible = bool(torch.equal(p1, p2))
+        del p1, p2
+
+        # the float32 transfer, sequential, under the profiler
+        cfg32 = dataclasses.replace(cfg, prob_transfer_dtype="float32")
+        t0 = time.perf_counter()
+        res32 = profile_device(
+            "analyze (float32 transfer, overlap off)",
+            lambda: run(cfg32, "f32", overlap=False), {"K1": "conv3d_valid_kernel"},
+        )
+        print(f"analyze (float32 transfer, overlap off) under the profiler: "
+              f"{time.perf_counter() - t0:.3f} s; stage seconds "
+              f"{ {k: round(v, 3) for k, v in res32.stage_seconds.items()} }; stage bytes "
+              f"{res32.stage_bytes}", flush=True)
+        tol = cfg.prob_scale / 131070 + 1e-6
+        a, b = res.mask, res32.mask
+        bad = np.abs(a - b) > tol
+        floor = cfg.prob_floor * cfg.prob_scale
+        near = bad & (np.minimum(a, b) == 0) & (np.abs(np.maximum(a, b) - floor) <= 1e-4)
+        n_bad, n_near = int(bad.sum()), int(near.sum())
+        print(f"uint16 vs float32 transfer: max |d mask| {float(np.abs(a - b).max()):.3e} "
+              f"(tolerance {tol:.3e}); {n_bad} voxels over, {n_near} of them within 1e-4 of the "
+              f"floor {floor}; device path bit-reproducible: {reproducible}; cells "
+              f"{len(res.cells)} vs {len(res32.cells)}", flush=True)
+        if n_bad > n_near or (n_near and reproducible):
+            raise AssertionError("the uint16 transfer's mask differs from the float32 run's")
+
+        # "fused" == "materialized" on one chunk's map; the two floods run
+        # at once (each releases the GIL)
+        prob = np.ascontiguousarray(res32.mask[: chunk[0], : chunk[1]])
+        cand = predict_cell_candidates(x[0][..., list(cfg.detection_channels)], det, device=dev)
+
+        def flood(backend):
+            t = time.perf_counter()
+            out = generate_unique_segmentation_mask(
+                prob, cand, dataclasses.replace(cfg.watershed, backend=backend), device=dev
+            )[0]
+            return out, time.perf_counter() - t
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            (fused, fused_s), (mat, mat_s) = pool.map(flood, ("fused", "materialized"))
+        equal = np.array_equal(fused, mat)
+        print(f"chunk_1_1 {prob.shape}, {len(cand['scores'])} candidates: fused {fused_s:.3f} s, "
+              f"materialized {mat_s:.3f} s (at once), {len(np.unique(fused)) - 1} labels, "
+              f"equal: {equal}", flush=True)
+        if not equal:
+            raise AssertionError("the fused and materialized backends disagree")
+        return counts
+    finally:
+        torch.backends.cudnn.deterministic = False
+        logging.getLogger("hcunet_tpu_torch.infer.pipeline").removeHandler(log)
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -539,8 +849,11 @@ def main() -> int:
     from hcunet_tpu_torch.csrc import build_all
     from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid_plain
     from hcunet_tpu_torch.ops.distance import EDT_PASS
+    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED
+    from hcunet_tpu_torch.ops.watershed import WATERSHED_HOST
 
     t_start = time.perf_counter()
+    marks = [("start", t_start)]  # (phase, time it ended)
     dev = torch.device("cuda")
     # phase 1: the card
     card = card_line()
@@ -552,13 +865,23 @@ def main() -> int:
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
     )
 
-    # phase 2: build K1 and K2, one nvcc each, together
+    # phase 2: build K1, K2 and K3, one nvcc each, and the host flood with
+    # g++, all together
+    kernels = {"K1": CONV3D_VALID, "K2": EDT_PASS, "K3": DOT_BLOCKED}
     t0 = time.perf_counter()
-    build_all([CONV3D_VALID, EDT_PASS])
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(WATERSHED_HOST.load)
+        build_all(kernels.values())
+        host.result()
     print(
-        f"K1 and K2 built by nvcc for sm_90a in {time.perf_counter() - t0:.1f} s "
-        f"({CONV3D_VALID.build_seconds:.1f} s and {EDT_PASS.build_seconds:.1f} s each)"
+        f"K1, K2 and K3 built by nvcc for sm_90a and the host flood by g++ in "
+        f"{time.perf_counter() - t0:.1f} s (K1 {CONV3D_VALID.build_seconds:.1f} s, K2 "
+        f"{EDT_PASS.build_seconds:.1f} s, K3 {DOT_BLOCKED.build_seconds:.1f} s, host flood "
+        f"{WATERSHED_HOST.build_seconds:.1f} s)",
+        flush=True,
     )
+
+    marks.append(("builds", time.perf_counter()))
 
     # phase 3: K1 against its plain version at the main path's shapes
     cfg = UNetConfig.production_3d()
@@ -582,9 +905,21 @@ def main() -> int:
         for name, x_shape, w, b, relu in cases:
             rows.append(check_kernel(name, x_shape, w, b, relu, dtype, gen_dev, dev))
             torch.cuda.empty_cache()
+    # each layer's GEMM (M, K, N): output voxels, taps x Cin, Cout
+    gemms = [
+        (x_shape[0] * math.prod(s - k + 1 for s, k in zip(x_shape[1:4], w.shape[:3])),
+         math.prod(w.shape[:4]), w.shape[4])
+        for x_shape, w, _b, _relu in layers
+    ]
     del layers, cases
 
-    # phase 4: slice 1's path
+    marks.append(("K1 checks", time.perf_counter()))
+
+    # phase 4: K3 against its plain version, and beside K1
+    k3_rows = dot_phase(gemms, rows, dev)
+    marks.append(("K3 checks", time.perf_counter()))
+
+    # phase 5: slice 1's path
     rng = np.random.default_rng(SEED)
     vols = [rng.random((*sp, cfg.in_channels), dtype=np.float32) for sp in REQUESTS]
     seg.warmup([REQUESTS[0]])
@@ -626,18 +961,20 @@ def main() -> int:
     del vols, seg32, plain_apply
     torch.cuda.empty_cache()
 
-    # phase 5: K2 against its plain version at the main path's shapes
+    marks.append(("slice 1", time.perf_counter()))
+
+    # phase 6: K2 against its plain version at the main path's shapes
     print("K2 vs plain (exact), axes (0, 1):")
     k2_rows = []
     for shape in EDT_SHAPES:
         k2_rows.append(check_edt(shape, dev))
         torch.cuda.empty_cache()
 
-    # phase 6: slice 2's path on the bench scene
+    marks.append(("K2 checks", time.perf_counter()))
+
+    # phase 7: slice 2's path on the bench scene
     scene = np.random.default_rng(SEED).random((*BENCH_SCENE, cfg.in_channels), np.float32)
-    (mask, cand, ws), counts = slice2_path(
-        model, scene, dev, {"K1": CONV3D_VALID, "K2": EDT_PASS}
-    )
+    (mask, cand, ws), counts = slice2_path(model, scene, dev, kernels)
     from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
 
     profile_device(
@@ -650,19 +987,32 @@ def main() -> int:
     del scene, mask, cand
     torch.cuda.empty_cache()
 
-    # phase 7: the instance stage with K2 against the plain EDT
-    check_instance_stage(dev)
+    marks.append(("slice 2", time.perf_counter()))
 
-    # phase 8: results
+    # phase 8: the instance stage with K2 against the plain EDT
+    check_instance_stage(dev)
+    torch.cuda.empty_cache()
+    marks.append(("instance blobs", time.perf_counter()))
+
+    # phase 9: slice 3's path, analyze on the pipeline scene
+    counts3 = analyze_phase(model, dev, kernels)
+    marks.append(("slice 3", time.perf_counter()))
+
+    # phase 10: results
     for row in rows:
-        row["launches"] = total + counts["K1"]
+        row["launches"] = total + counts["K1"] + counts3["K1"]
     for row in k2_rows:
-        row["launches"] = counts["K2"]
+        row["launches"] = counts["K2"] + counts3["K2"]
+    for row in k3_rows:
+        row["launches"] = counts["K3"] + counts3["K3"]
     print(
-        f"main path: slice 1 {total} K1 launches; slice 2 {counts['K1']} K1 and "
-        f"{counts['K2']} K2 launches; total {time.perf_counter() - t_start:.1f} s"
+        f"main path: slice 1 {total} K1 launches; slice 2 {counts['K1']} K1, "
+        f"{counts['K2']} K2 and {counts['K3']} K3 launches; slice 3 {counts3['K1']} K1, "
+        f"{counts3['K2']} K2 and {counts3['K3']} K3 launches; total "
+        f"{time.perf_counter() - t_start:.1f} s; phase seconds "
+        + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:]))
     )
-    rows += k2_rows
+    rows += k2_rows + k3_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

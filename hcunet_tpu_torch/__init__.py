@@ -9,10 +9,15 @@ neither it nor JAX.  Entry points run on CUDA unless the caller passes
 
 from hcunet_tpu_torch.config import (
     DetectorConfig,
+    PipelineConfig,
     TileConfig,
     UNetConfig,
     WatershedConfig,
     auto_tile_config,
 )
+from hcunet_tpu_torch.infer.pipeline import AnalyzeResult, analyze
 
-__all__ = ["DetectorConfig", "TileConfig", "UNetConfig", "WatershedConfig", "auto_tile_config"]
+__all__ = [
+    "AnalyzeResult", "DetectorConfig", "PipelineConfig", "TileConfig", "UNetConfig",
+    "WatershedConfig", "analyze", "auto_tile_config",
+]

@@ -9,7 +9,7 @@ caller names another device, and an error when CUDA is absent.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -144,9 +144,6 @@ class WatershedConfig:
       (``ops/watershed_device.py`` bounded-iteration minimax-path
       relaxation, ``device_iters`` steps).  Approximate on plateau
       tie-breaks.
-
-    The port runs ``"device"`` only so far; the two host backends need the
-    port's own binding of the ``native/`` flood.
     """
 
     connectivity: int = 1
@@ -160,9 +157,35 @@ class WatershedConfig:
     distance_floor: float = 0.2
     backend: str = "fused"
     device_iters: int = 96
-    # host threads flooding tiles concurrently for the host backends;
-    # 0 = auto (cpu_count - 1, min 1); 1 = serial.
+    # host threads flooding tiles concurrently for the host backends (the
+    # flood releases the GIL); write-backs stay in tile order, so the labels
+    # are the same at any worker count.  0 = auto (cpu_count - 1, min 1).
     tile_workers: int = 0
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """End-to-end ``analyze`` settings (``hcat/main.py:20-236``)."""
+
+    numchunks: int = 3
+    gaussian_sigma: float = 3.0
+    prob_floor: float = 0.25
+    prob_scale: float = 10.0
+    normalize_mean: Tuple[float, ...] = (0.5, 0.5, 0.5, 0.5)
+    normalize_std: Tuple[float, ...] = (0.5, 0.5, 0.5, 0.5)
+    # dtype the probability map rides device→host in: "float32" (exact),
+    # "bfloat16", or fixed point over the epilogue's static [0, prob_scale]
+    # range, "uint16" (2 B/voxel, max abs error prob_scale/131070) or
+    # "uint8" (1 B/voxel, max abs error prob_scale/510)
+    prob_transfer_dtype: str = "float32"
+    # zlib-compress the per-chunk spill files (lossless either way: disk
+    # against CPU in the chunk tail and at reconstruct)
+    spill_compress: bool = False
+    detection_channels: Tuple[int, ...] = (0, 2, 3)
+    unet: UNetConfig = field(default_factory=UNetConfig.production_3d)
+    tiles: TileConfig = field(default_factory=TileConfig)
+    watershed: WatershedConfig = field(default_factory=WatershedConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
 
 
 # ---------------------------------------------------------------------------

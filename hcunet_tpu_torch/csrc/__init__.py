@@ -1,10 +1,13 @@
-"""Hand-written CUDA kernels of the port and their build.
+"""Hand-written kernels of the port and their build.
 
 Each ``*.cu`` file here has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ``build/`` at the repository root on first use,
-then loaded with ``ctypes``.  The library name carries a hash of the source,
-so an edited kernel is rebuilt and a stale library is never loaded.  Nothing
-is built or imported when a module of the port is imported.
+for Hopper (``sm_90a``); the host flood ``watershed_host.cpp`` (the port's
+copy of ``native/watershed.cpp``) is compiled by ``g++`` with the flags of
+``native/Makefile``.  Libraries go into ``build/`` at the repository root on
+first use and are loaded with ``ctypes``.  The library name carries a hash
+of the source and the compiler's flags, so an edited source is rebuilt and a
+stale library is never loaded.  Nothing is built or imported when a module
+of the port is imported.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -24,6 +28,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# native/Makefile's CXXFLAGS, unchanged: GCC's default -ffp-contract=fast
+# fuses the compact-watershed priority's multiply-add under -march=native,
+# and other flags can break ties differently, so only these give labels
+# bit-identical to the JAX package's host flood
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
 def nvcc_path() -> str:
@@ -38,20 +47,36 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where the shared library of ``csrc/<source>`` is built."""
-    digest = hashlib.sha1((CSRC_DIR / source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+FLAGS = {"nvcc": NVCC_FLAGS, "g++": GXX_FLAGS}
 
 
-def build(source: str) -> tuple[Path, float]:
-    """Compile ``csrc/<source>`` unless its library is already built.
+def _executable(compiler: str) -> str:
+    if compiler == "nvcc":
+        return nvcc_path()
+    found = shutil.which(compiler)
+    if found is None:
+        raise RuntimeError(f"{compiler} not found on PATH")
+    return found
+
+
+def library_path(source: str, compiler: str = "nvcc") -> Path:
+    """Where the shared library of ``csrc/<source>`` is built by
+    ``compiler`` (``"nvcc"`` or ``"g++"``)."""
+    h = hashlib.sha1((CSRC_DIR / source).read_bytes())
+    h.update(" ".join((compiler, *FLAGS[compiler])).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(source: str, compiler: str = "nvcc") -> tuple[Path, float]:
+    """Compile ``csrc/<source>`` with ``compiler`` unless its library is
+    already built.
 
     Returns ``(path, seconds spent compiling)``.  The compiler's output is
     raised with the error when the build fails."""
-    out = library_path(source)
+    out = library_path(source, compiler)
     if out.exists():
         return out, 0.0
+    exe = _executable(compiler)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     # compile to a temporary name, then rename: a concurrent or interrupted
@@ -59,11 +84,11 @@ def build(source: str) -> tuple[Path, float]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / source)]
+        cmd = [exe, *FLAGS[compiler], "-o", tmp, str(CSRC_DIR / source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {source} ({proc.returncode}):\n"
+                f"{compiler} failed on {source} ({proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, out)
@@ -107,3 +132,30 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+
+class HostLibrary:
+    """A host C++ library built by ``g++`` and loaded at first use.
+
+    ``functions`` maps each C symbol to its ``argtypes``; every symbol
+    returns a C ``int``.  Loading takes a lock, since tile workers may ask
+    for it at once.  ``ctypes`` releases the GIL for the length of a call."""
+
+    def __init__(self, source: str, functions: dict):
+        self.source = source
+        self.functions = functions
+        self.build_seconds = 0.0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                path, self.build_seconds = build(self.source, compiler="g++")
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in self.functions.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib

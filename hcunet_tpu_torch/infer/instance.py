@@ -8,24 +8,40 @@
 2. paint per-box seeds: inside each (shrunk-by-5px) box, mark the voxels
    where the semantic probability attains the box maximum, replicated over 6
    z-slices starting at ``best_z``;
-3. per spatial tile, on the card (``backend="device"``): a height map (the
-   normalized probability map, or for a uint8 mask the per-z-slice exact EDT
-   — kernel K2 through :func:`hcunet_tpu_torch.ops.distance.edt`), each
-   z-slice replicated ``expand_z`` times, the mask dilated, a background seed
-   where the height < 0.15, the bounded minimax watershed with lines
-   (:func:`~hcunet_tpu_torch.ops.watershed_device.watershed_device`), z
-   decimated back; then on the host labels touching the tile's edges are
-   zeroed (seam-free merging) and the rest pasted into the global volume.
+3. per spatial tile: a height map (the normalized probability map, or for a
+   uint8 mask the per-z-slice exact EDT), each z-slice replicated
+   ``expand_z`` times, the mask dilated, a background seed where the height
+   < 0.15, the compact seeded watershed with lines, z decimated back; then
+   labels touching the tile's edges are zeroed (seam-free merging) and the
+   rest pasted into the global volume in tile order.
+
+``cfg.backend`` picks the tile's flood:
+
+* ``"fused"`` (default): one call of the host flood per tile
+  (:func:`hcunet_tpu_torch.ops.watershed.instance_tile`), z-expansion and
+  dilation virtual; the binary path's EDT is scipy's on the host.  Tiles
+  flood concurrently on ``cfg.tile_workers`` threads (the flood releases the
+  GIL); write-backs stay in tile order, so labels are the same at any worker
+  count.
+* ``"materialized"``: the reference's procedure with the z-expanded float64
+  volumes built in numpy, ``scipy.ndimage.binary_dilation`` and the host
+  :func:`~hcunet_tpu_torch.ops.watershed.watershed`; labels equal
+  ``"fused"``'s bit for bit.
+* ``"device"``: the tile on the card, the binary path's EDT kernel K2
+  (:func:`hcunet_tpu_torch.ops.distance.edt`) and the bounded minimax
+  relaxation (:func:`~hcunet_tpu_torch.ops.watershed_device.watershed_device`),
+  tiles one after another.  Approximate on plateau tie-breaks.
 
 Boxes are ``(x1, y1, x2, y2)`` in array axes (dim0, dim1) of the
-``[X, Y, Z]`` volume, as :mod:`hcunet_tpu_torch.infer.detect` produces.  The
-host backends ``"fused"`` and ``"materialized"`` need the ``native/`` flood,
-which the port does not bind yet.
+``[X, Y, Z]`` volume, as :mod:`hcunet_tpu_torch.infer.detect` produces.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -33,10 +49,11 @@ import torch
 
 from hcunet_tpu_torch.config import WatershedConfig, resolve_device
 from hcunet_tpu_torch.core.shapes import calculate_indexes
-from hcunet_tpu_torch.ops.distance import edt
+from hcunet_tpu_torch.ops.distance import edt, edt_per_slice_host
+from hcunet_tpu_torch.ops.watershed import instance_tile, watershed
 from hcunet_tpu_torch.ops.watershed_device import _shift, watershed_device
 
-HOST_BACKENDS = ("fused", "materialized")
+BACKENDS = ("fused", "materialized", "device")
 
 
 def _resolve_host_ram(host_ram_bytes: Optional[int] = None) -> int:
@@ -139,22 +156,19 @@ def generate_unique_segmentation_mask(
     ``semantic``: ``[X, Y, Z]`` float32 probability map (possibly blurred /
     rescaled by the pipeline) or uint8 binary mask.
     ``candidates``: dict of ``boxes [N,4] (x1,y1,x2,y2)``, ``scores [N]``,
-    ``labels [N]``, ``z_level [N]`` (host numpy).  The tiles run on
-    ``device`` (CUDA unless given) with ``cfg.backend == "device"``;
-    ``edt_fn`` computes the binary path's EDT there (K2's wrapper).  The
-    device backend runs its tiles one after another; ``concurrent_stages``
-    sizes the host backends' flood pool (:func:`_cap_tile_workers`), which
-    comes with them.
+    ``labels [N]``, ``z_level [N]`` (host numpy).  The host backends
+    (``"fused"``, ``"materialized"``) run on the host and ignore ``device``;
+    they flood up to ``cfg.tile_workers`` tiles at once, capped so that the
+    tiles in flight fit in half of ``host_ram_bytes`` shared by
+    ``concurrent_stages`` concurrent instance stages
+    (:func:`_cap_tile_workers`).  ``backend="device"`` runs each tile on
+    ``device`` (CUDA unless given), with ``edt_fn`` (K2's wrapper) for the
+    binary path's EDT.
     """
     cfg = cfg or WatershedConfig()
-    if cfg.backend in HOST_BACKENDS:
-        raise NotImplementedError(
-            f"backend {cfg.backend!r} needs the native/ host flood, which the "
-            f"port binds with ROADMAP item 9 (slice 3); use backend='device'"
-        )
-    if cfg.backend != "device":
+    if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown watershed backend {cfg.backend!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if cfg.backend == "device" else None
     X, Y, Z = semantic.shape
     unique_mask = np.zeros((X, Y, Z), np.int32)
     seed = np.zeros((X, Y, Z), np.int32)
@@ -222,6 +236,7 @@ def generate_unique_segmentation_mask(
         unique_cell_id += 1
 
     # --- per-tile watershed (segment.py:403-499) ---
+    host_ram_bytes = _resolve_host_ram(host_ram_bytes)
     pad, ev = _instance_tile_geometry((X, Y), host_ram_bytes)
     if ev[0] >= X:
         x_ind, pad_x = [[0, X]], 0
@@ -233,7 +248,7 @@ def generate_unique_segmentation_mask(
         y_ind, pad_y = calculate_indexes(pad[1], ev[1], Y, Y), pad[1]
     pad = [pad_x, pad_y]
 
-    for (x0, x1), (y0, y1) in itertools.product(x_ind, y_ind):
+    def flood_tile(x0, x1, y0, y1) -> np.ndarray:
         tile = semantic[x0:x1, y0:y1, :].astype(np.float64)
         if use_prob_map and tile.max() > 1:
             tile = tile + 1e-8
@@ -242,10 +257,13 @@ def generate_unique_segmentation_mask(
             if m > 0:
                 tile = tile / m
             binary = tile > cfg.mask_prob_threshold
-            distance = tile.astype(np.float32)
+            distance = tile
         else:
             binary = tile > 0
-            distance = None  # the per-slice EDT runs on the device
+            if cfg.backend == "device":
+                distance = None  # the per-slice EDT runs on the device
+            else:
+                distance = edt_per_slice_host(binary.astype(np.uint8)).astype(np.float64)
 
         # seeds only from the trusted interior of the tile (segment.py:440-442)
         seed_tile = np.zeros_like(binary, dtype=np.int32)
@@ -259,7 +277,35 @@ def generate_unique_segmentation_mask(
                 :,
             ]
 
-        labels = _device_instance_tile(distance, binary, seed_tile, cfg, dev, edt_fn)
+        if cfg.backend == "device":
+            labels = _device_instance_tile(distance, binary, seed_tile, cfg, dev, edt_fn)
+        elif cfg.backend == "fused":
+            # one host call: virtual z-expansion + chamfer dilation + flood
+            labels = instance_tile(
+                distance, binary, seed_tile,
+                expand_z=cfg.expand_z,
+                expand_mask=cfg.expand_mask,
+                distance_floor=cfg.distance_floor,
+                seed_background_below=cfg.seed_background_below,
+                connectivity=cfg.connectivity,
+                compactness=cfg.compactness,
+                watershed_line=True,
+            )
+        else:  # "materialized": fake isotropy by replicating z (segment.py:444-450)
+            from scipy import ndimage as ndi
+
+            E = cfg.expand_z
+            dist_e = np.repeat(distance, E, axis=2)
+            seed_e = np.repeat(seed_tile, E, axis=2)
+            mask_e = np.repeat(binary, E, axis=2)
+            dist_e[dist_e < cfg.distance_floor] = 0  # steep cutoffs
+            if cfg.expand_mask:
+                mask_e = ndi.binary_dilation(mask_e, iterations=cfg.expand_mask)
+            seed_e[dist_e < cfg.seed_background_below] = 1  # background
+            labels = watershed(
+                -dist_e, seed_e, mask=mask_e, connectivity=cfg.connectivity,
+                compactness=cfg.compactness, watershed_line=True,
+            )[:, :, ::E]
         labels[labels == 1] = 0  # drop the background label
 
         # suppress edge-touching labels for seam-free merging
@@ -271,9 +317,39 @@ def generate_unique_segmentation_mask(
             )
         )
         labels[np.isin(labels, edge_ids)] = 0
+        return labels
+
+    def paste(x0, x1, y0, y1, labels) -> None:
         region = unique_mask[x0:x1, y0:y1, :]
         region[labels > 0] = labels[labels > 0]
         if progress:
             progress(f"watershed tile [{x0}:{x1}, {y0}:{y1}]")
+
+    tiles = [(x0, x1, y0, y1) for x0, x1 in x_ind for y0, y1 in y_ind]
+    workers = cfg.tile_workers or max(1, (os.cpu_count() or 1) - 1)
+    # the tile table assumes ONE tile in flight (the reference's semantics),
+    # so concurrency is capped by host RAM; an explicit cfg.tile_workers too
+    workers = _cap_tile_workers(
+        workers, pad, ev, Z, cfg, host_ram_bytes, concurrent_stages
+    )
+    if workers > 1 and len(tiles) > 1 and cfg.backend != "device":
+        # floods run concurrently; results are pasted in tile order, so the
+        # output equals the serial loop's.  Futures in flight are bounded by
+        # the worker count, so finished label tiles cannot pile up.
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            it = iter(tiles)
+            window: deque = deque()
+            for tl in itertools.islice(it, workers):
+                window.append((tl, pool.submit(flood_tile, *tl)))
+            while window:
+                tl, fut = window.popleft()
+                labels = fut.result()
+                nxt = next(it, None)
+                if nxt is not None:
+                    window.append((nxt, pool.submit(flood_tile, *nxt)))
+                paste(*tl, labels)
+    else:
+        for tl in tiles:
+            paste(*tl, flood_tile(*tl))
 
     return unique_mask, seed

@@ -1,5 +1,6 @@
-"""Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``) and K2
-(``csrc/edt_pass.cu``) against their plain versions, on the card.
+"""Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
+(``csrc/edt_pass.cu``) and K3 (``csrc/dot_blocked.cu``) against their plain
+versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; they skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed::
@@ -13,6 +14,7 @@ import torch
 
 from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid, conv3d_valid_plain
 from hcunet_tpu_torch.ops.distance import EDT_PASS, edt, edt_axis_pass, edt_plain
+from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked, dot_blocked_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +115,49 @@ def test_edt_axis_pass_rejects_what_it_does_not_take(cuda):
         edt_axis_pass(torch.zeros((4, 4), device=cuda, dtype=torch.float64), 0)
     with pytest.raises(ValueError):
         edt_axis_pass(torch.zeros((4, 6), device=cuda).t(), 0)
+
+
+# (x shape, N): M, N and K ragged against the 128 x {16, 32, 64} x 32
+# tiles; K not a multiple of 16; a single row; N = 1; M over one block row
+DOT_CASES = [
+    ((1, 1, 1, 13), 5),
+    ((2, 7, 9, 72), 16),
+    ((1, 11, 13, 40), 33),
+    ((3, 17, 5, 130), 70),
+    ((1, 300, 3, 24), 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(DOT_CASES)))
+def test_dot_blocked_matches_plain(cuda, case, dtype):
+    xs, n = DOT_CASES[case]
+    rng = np.random.default_rng(case)
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((xs[-1], n), np.float32) / np.sqrt(xs[-1]))
+    w = w.to(cuda, dtype)
+    before = DOT_BLOCKED.launches
+    got = dot_blocked(x, w)
+    torch.cuda.synchronize()
+    assert DOT_BLOCKED.launches == before + 1
+    want = dot_blocked_plain(x, w)
+    assert got.shape == want.shape == (*xs[:-1], n) and got.dtype == dtype
+    scale = max(1.0, float(want.float().abs().max()))
+    # as for K1: float32 sums in other orders; bf16 rounds the float32 sum once
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (case, err, tol)
+
+
+def test_dot_blocked_raises_on_mixed_devices_and_types(cuda):
+    x = torch.zeros((1, 2, 3, 4), device=cuda)
+    before = DOT_BLOCKED.launches
+    with pytest.raises(ValueError, match="w on"):
+        dot_blocked(x, torch.zeros((4, 2)))
+    with pytest.raises(ValueError, match="w on"):
+        dot_blocked(x.cpu(), torch.zeros((4, 2), device=cuda))
+    with pytest.raises(TypeError):
+        dot_blocked(x, torch.zeros((4, 2), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        dot_blocked(x, torch.zeros((2, 4), device=cuda).t())
+    assert DOT_BLOCKED.launches == before

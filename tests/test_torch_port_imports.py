@@ -35,7 +35,7 @@ leaked = sorted(k for k in sys.modules
                 if k == "jax" or k.startswith(("jax.", "jaxlib", "flax", "hcunet_tpu.", "hcat"))
                 or k == "hcunet_tpu")
 print(len(names), leaked)
-assert len(names) >= 27, names
+assert len(names) >= 38, names
 assert not leaked, leaked
 """
 
@@ -157,9 +157,16 @@ def test_edt_takes_plain_version_only_on_cpu():
 
 
 @pytest.mark.parametrize("backend", ["fused", "materialized"])
-def test_host_watershed_backends_not_ported(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        generate_unique_segmentation_mask(
-            np.zeros((8, 8, 2), np.uint8), _CAND, WatershedConfig(backend=backend),
-            device="cpu",
-        )
+def test_host_watershed_backends_not_ported(no_cuda, backend):
+    """The host backends are ported now (the host flood of
+    ``ops/watershed.py``): they run on the host, so they need no card and
+    no ``device=`` even where CUDA is absent."""
+    mask = np.zeros((16, 16, 3), np.uint8)
+    mask[2:14, 2:14] = 1
+    labels, seeds = generate_unique_segmentation_mask(
+        mask, _CAND, WatershedConfig(backend=backend, expand_mask=1)
+    )
+    assert labels.shape == seeds.shape == mask.shape
+    assert labels.dtype == seeds.dtype == np.int32
+    with pytest.raises(ValueError, match="unknown watershed backend"):
+        generate_unique_segmentation_mask(mask, _CAND, WatershedConfig(backend="other"))
