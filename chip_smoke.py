@@ -4,9 +4,15 @@
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases k1     # build K1 and run phase 3 alone
 
-Phases (any failure exits non-zero):
+``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
+``slice1`` (5), ``k2`` (6), ``slice2`` (7), ``blobs`` (8) and ``slice3``
+(9); phases 1, 2 (only the kernels the chosen phases launch) and 10 always
+run.  A run of fewer than all phases reports no launch counts (they are the
+whole main path's) and ends with ``{"partial": true, "phases": [...], ...}``
+instead of the result line.  Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
 2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
@@ -16,7 +22,10 @@ Phases (any failure exits non-zero):
 3. hold K1 against its plain version at the 15 valid-conv shapes of the
    production U-Net's serving forward at the tile geometry the port picks
    for this card, plus the TPU probe's case 1, in bfloat16 and float32,
-   timing the kernel, the plain version and cuDNN's ``F.conv3d``;
+   timing the kernel, the plain version and cuDNN's ``F.conv3d``; each row
+   names K1's path (``k1_route``: ``ring`` or ``basic``), and the sums over
+   the 15 layers and over the ring layers are printed beside cuDNN's and
+   the bound's;
 4. hold K3 against its plain version at the TPU probe's two shapes and at
    the GEMM shape (M, K, N) of each of the 15 K1 layers (a random dense A),
    in bfloat16 and float32, timing the kernel, the plain version and
@@ -24,8 +33,9 @@ Phases (any failure exits non-zero):
 5. slice 1's path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
    at full width (random He-normal weights and random batch-norm statistics
    from a seed) for three requests, checking that every tile batch launched
-   K1 15 times, and that the float32 request agrees with a forward built on
-   the plain conv;
+   K1 15 times (in bfloat16 14 on the ring path, the 4-channel first conv
+   on the basic one), and that the float32 request agrees with a forward
+   built on the plain conv;
 6. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
    1212^2 x 8, and a ragged shape, timing both passes of each;
@@ -48,7 +58,8 @@ Phases (any failure exits non-zero):
    under ``torch.profiler`` whose mask the uint16 run's must match within
    one half quantum, and the ``"fused"`` and ``"materialized"`` backends on
    one chunk's map, which must give equal labels;
-10. print one JSON line of kernel rows, the card line, and the result line.
+10. print one JSON line of kernel rows (``launches``: the main path's
+    count, slices 1-3), the card line, and the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
@@ -162,21 +173,36 @@ def record_layers(model, tile_cfg, dev):
     return layers
 
 
-def check_kernel(name, x_shape, w, b, relu, dtype, gen, dev):
-    """K1 against its plain version on one shape and dtype; returns a row."""
-    from hcunet_tpu_torch.ops.conv import conv3d_valid, conv3d_valid_plain
+def conv_error(got, want) -> tuple[float, float]:
+    """A K1 result's max error against the plain version's, and its
+    tolerance.  float32: both sum in float32 in different orders.  bfloat16:
+    both round the float32 sum once, so they differ by at most one bf16 ulp
+    (2^-7 relative) where the sums straddle a rounding boundary."""
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if want.dtype == torch.float32 else 2.0**-7 * scale
+    return float((got.float() - want.float()).abs().max()), tol
 
-    x = torch.randn(x_shape, generator=gen, device=dev).to(dtype)
-    w = w.to(dtype).contiguous()
+
+def check_kernel(name, x, w, b, relu):
+    """K1 against its plain version on one input (``w`` in ``x``'s dtype);
+    returns a row."""
+    from hcunet_tpu_torch.ops.conv import (
+        CONV3D_VALID,
+        conv3d_valid,
+        conv3d_valid_plain,
+        conv3d_valid_route,
+    )
+
+    dtype, x_shape = x.dtype, tuple(x.shape)
+    k1_route = conv3d_valid_route(dtype, w.shape[3], w.shape[4])
+    before = dict(CONV3D_VALID.route_launches)
     got = conv3d_valid(x, w, b, relu)
+    taken = [r for r, n in CONV3D_VALID.route_launches.items() if n != before[r]]
+    if taken != [k1_route]:
+        raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
     want = conv3d_valid_plain(x, w, b, relu)
     torch.cuda.synchronize()
-    scale = max(1.0, float(want.float().abs().max()))
-    # float32: both sum in float32 in different orders.  bfloat16: both round
-    # the float32 sum once, so they differ by at most one bf16 ulp (2^-7
-    # relative) where the sums straddle a rounding boundary.
-    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
-    err = float((got.float() - want.float()).abs().max())
+    err, tol = conv_error(got, want)
     del got, want
 
     x_cf = x.permute(0, 4, 1, 2, 3)
@@ -197,6 +223,7 @@ def check_kernel(name, x_shape, w, b, relu, dtype, gen, dev):
     row = {
         "name": f"conv3d_valid[{name},{dt}]",
         "route": "cuda",
+        "k1_route": k1_route,
         "source": "hcunet_tpu_torch/csrc/conv3d_valid.cu",
         "replaces": "scripts/probe_pallas_conv.py:228",
         "launches": None,
@@ -208,7 +235,7 @@ def check_kernel(name, x_shape, w, b, relu, dtype, gen, dev):
         "library_ms": library_ms,
     }
     print(
-        f"  {row['name']:34s} x{list(x_shape)} w{list(w.shape)} err {err:.3e} "
+        f"  {row['name']:34s} {k1_route:5s} x{list(x_shape)} w{list(w.shape)} err {err:.3e} "
         f"(tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
         f"cudnn {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms "
         f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
@@ -219,6 +246,21 @@ def check_kernel(name, x_shape, w, b, relu, dtype, gen, dev):
     return row
 
 
+def k1_sums(rows) -> None:
+    """K1 over the 15 layers and over the layers on the ring path, per
+    dtype, beside cuDNN and the bound."""
+    for dt in ("bf16", "f32"):
+        layer = [r for r in rows if r["name"] in {f"conv3d_valid[{n},{dt}]" for n in LAYER_NAMES}]
+        for label, sel in (("15 layers", layer),
+                           ("ring layers", [r for r in layer if r["k1_route"] == "ring"])):
+            if not sel:
+                continue
+            ms, lib, bound = (sum(r[k] for r in sel) for k in ("ms", "library_ms", "bound_ms"))
+            print(f"K1 {dt}, {label} ({len(sel)}): kernel {ms:.3f} ms, cuDNN {lib:.3f} ms "
+                  f"(kernel/cuDNN {ms / lib:.3f}), bound {bound:.3f} ms (kernel at "
+                  f"{100 * bound / ms:.1f}% of it)", flush=True)
+
+
 def n_tile_batches(seg, spatial) -> int:
     bucket = seg.bucket_shape(spatial)
     ev = [min(e, s) for e, s in zip(seg.tile_cfg.eval_size, bucket)]
@@ -226,20 +268,39 @@ def n_tile_batches(seg, spatial) -> int:
     return -(-tiles // seg.tile_cfg.batch)
 
 
+def reset_counts(kernels) -> None:
+    """Every launch count (and K1's count by path) to 0."""
+    for k in kernels:
+        k.launches = 0
+        k.route_launches = dict.fromkeys(k.route_launches, 0)
+
+
+def check_k1_routes(route_launches, batches, dtype) -> None:
+    """Each tile batch runs 14 convs on K1's ring path and the 4-channel
+    first one on the basic path in bfloat16, all 15 on the basic path in
+    float32."""
+    ring = 14 * batches if dtype == torch.bfloat16 else 0
+    want = {"basic": 15 * batches - ring, "ring": ring}
+    if route_launches != want:
+        raise AssertionError(f"K1 routes {route_launches}, expected {want}")
+
+
 def run_request(seg, vol, kernel) -> tuple[np.ndarray, float, int, int]:
     """One ``predict`` with the launch count set to 0 just before it.
     Returns the probabilities, seconds, launches and peak device bytes."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    reset_counts([kernel])
     t0 = time.perf_counter()
     out = seg.predict(vol)
     sec = time.perf_counter() - t0
     launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    want = 15 * n_tile_batches(seg, vol.shape[:-1])
+    batches = n_tile_batches(seg, vol.shape[:-1])
+    want = 15 * batches
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times, expected {want}")
+    check_k1_routes(kernel.route_launches, batches, seg.model.dtype)
     if out.shape != vol.shape[:-1] or not np.isfinite(out).all():
         raise AssertionError(f"bad output {out.shape} for {vol.shape}")
     if out.min() < 0 or out.max() > 1:
@@ -442,8 +503,7 @@ def slice2_path(model, vol, dev, kernels):
     sec = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts(kernels.values())
     t0 = time.perf_counter()
     mask = seg.predict(norm)
     sec["segment"] = time.perf_counter() - t0
@@ -464,6 +524,7 @@ def slice2_path(model, vol, dev, kernels):
     counts = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
+    check_k1_routes(kernels["K1"].route_launches, n_tile_batches(seg, vol.shape[:-1]), torch.bfloat16)
     want_k1 = 15 * n_tile_batches(seg, vol.shape[:-1])
     want_k2 = 2 * n_instance_tiles(vol.shape[:2])
     if counts["K1"] != want_k1 or counts["K2"] != want_k2:
@@ -632,6 +693,8 @@ def dot_phase(gemms, k1_rows, dev) -> list:
             pieces = [per] * (M // per) + ([M % per] if M % per else [])
             rows.append(check_dot(name, (1, 1, per, K), N, dtype, dev, pieces))
             torch.cuda.empty_cache()
+    if not k1_rows:
+        return rows
     k1 = {r["name"]: r["ms"] for r in k1_rows}
     for dt in ("bf16", "f32"):
         print(f"K3 / K1 per layer, {dt} (K3: the product alone, on a dense A; K1: the conv):")
@@ -738,8 +801,7 @@ def analyze_phase(model, dev, kernels) -> dict:
         log.counts.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels.values():
-            k.launches = 0
+        reset_counts(kernels.values())
         t0 = time.perf_counter()
         res = run(cfg, "timed")
         wall = time.perf_counter() - t0
@@ -756,14 +818,14 @@ def analyze_phase(model, dev, kernels) -> dict:
         )
         if counts["K1"] != want_k1:
             raise AssertionError(f"analyze launched K1 {counts['K1']} times, expected {want_k1}")
+        check_k1_routes(kernels["K1"].route_launches, want_k1 // 15, torch.bfloat16)
         if res.mask.shape != vol.shape[:-1] or not np.isfinite(res.mask).all():
             raise AssertionError(f"bad mask {res.mask.shape}")
         if res.unique_mask.shape != vol.shape[:-1] or res.unique_mask.dtype != np.int32:
             raise AssertionError(f"bad instances {res.unique_mask.dtype} {res.unique_mask.shape}")
 
         # resume from the timed run's journal: every chunk cached
-        for k in kernels.values():
-            k.launches = 0
+        reset_counts(kernels.values())
         t0 = time.perf_counter()
         again = run(cfg, "timed")
         resume_s = time.perf_counter() - t0
@@ -789,7 +851,7 @@ def analyze_phase(model, dev, kernels) -> dict:
         t0 = time.perf_counter()
         res32 = profile_device(
             "analyze (float32 transfer, overlap off)",
-            lambda: run(cfg32, "f32", overlap=False), {"K1": "conv3d_valid_kernel"},
+            lambda: run(cfg32, "f32", overlap=False), {"K1": "conv3d_valid"},
         )
         print(f"analyze (float32 transfer, overlap off) under the profiler: "
               f"{time.perf_counter() - t0:.3f} s; stage seconds "
@@ -835,62 +897,15 @@ def analyze_phase(model, dev, kernels) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    if not (Path(__file__).resolve().parent / "hcunet_tpu_torch").is_dir():
-        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
-        return 1
-    from hcunet_tpu_torch.config import UNetConfig
-    from hcunet_tpu_torch.infer.compile import compile_serving_apply
-    from hcunet_tpu_torch.infer.serving import Segmenter
-    from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
-    from hcunet_tpu_torch.csrc import build_all
-    from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid_plain
-    from hcunet_tpu_torch.ops.distance import EDT_PASS
-    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED
-    from hcunet_tpu_torch.ops.watershed import WATERSHED_HOST
+def gemm_shape(x_shape, w) -> tuple:
+    """A layer's GEMM (M, K, N): output voxels, taps x Cin, Cout."""
+    out_vox = x_shape[0] * math.prod(s - k + 1 for s, k in zip(x_shape[1:4], w.shape[:3]))
+    return out_vox, math.prod(w.shape[:4]), w.shape[4]
 
-    t_start = time.perf_counter()
-    marks = [("start", t_start)]  # (phase, time it ended)
-    dev = torch.device("cuda")
-    # phase 1: the card
-    card = card_line()
-    print(f"card: {card}; torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(
-        f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
-    )
 
-    # phase 2: build K1, K2 and K3, one nvcc each, and the host flood with
-    # g++, all together
-    kernels = {"K1": CONV3D_VALID, "K2": EDT_PASS, "K3": DOT_BLOCKED}
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        host = pool.submit(WATERSHED_HOST.load)
-        build_all(kernels.values())
-        host.result()
-    print(
-        f"K1, K2 and K3 built by nvcc for sm_90a and the host flood by g++ in "
-        f"{time.perf_counter() - t0:.1f} s (K1 {CONV3D_VALID.build_seconds:.1f} s, K2 "
-        f"{EDT_PASS.build_seconds:.1f} s, K3 {DOT_BLOCKED.build_seconds:.1f} s, host flood "
-        f"{WATERSHED_HOST.build_seconds:.1f} s)",
-        flush=True,
-    )
-
-    marks.append(("builds", time.perf_counter()))
-
-    # phase 3: K1 against its plain version at the main path's shapes
-    cfg = UNetConfig.production_3d()
-    gen = torch.Generator().manual_seed(SEED)
-    model = build_model(cfg, gen)
-    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
-    tile_cfg = seg.tile_cfg
-    print(f"tile geometry: {tile_cfg}")
-    layers = record_layers(seg.model, tile_cfg, dev)
+def k1_phase(layers, gen, dev) -> list:
+    """Phase 3: K1 against its plain version at the 15 layer shapes of the
+    serving forward and the TPU probe's case 1, in bfloat16 and float32."""
     xs, ws = PROBE_CASE_1
     probe_w = torch.randn(ws, generator=gen) / math.sqrt(math.prod(ws[:4]))
     probe_b = torch.randn(ws[-1], generator=gen) * 0.1
@@ -903,41 +918,42 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         print(f"K1 vs plain, {dtype}:")
         for name, x_shape, w, b, relu in cases:
-            rows.append(check_kernel(name, x_shape, w, b, relu, dtype, gen_dev, dev))
+            x = torch.randn(x_shape, generator=gen_dev, device=dev).to(dtype)
+            rows.append(check_kernel(name, x, w.to(dtype).contiguous(), b, relu))
+            del x
             torch.cuda.empty_cache()
-    # each layer's GEMM (M, K, N): output voxels, taps x Cin, Cout
-    gemms = [
-        (x_shape[0] * math.prod(s - k + 1 for s, k in zip(x_shape[1:4], w.shape[:3])),
-         math.prod(w.shape[:4]), w.shape[4])
-        for x_shape, w, _b, _relu in layers
-    ]
-    del layers, cases
+    k1_sums(rows)
+    return rows
 
-    marks.append(("K1 checks", time.perf_counter()))
 
-    # phase 4: K3 against its plain version, and beside K1
-    k3_rows = dot_phase(gemms, rows, dev)
-    marks.append(("K3 checks", time.perf_counter()))
+def slice1_phase(model, seg, dev, kernel) -> int:
+    """Phase 5: three bf16 requests and a float32 one through K1, the
+    float32 one against a forward on the plain conv.  Returns K1's
+    launches."""
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+    from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
 
-    # phase 5: slice 1's path
+    cfg, tile_cfg = model.config, seg.tile_cfg
     rng = np.random.default_rng(SEED)
     vols = [rng.random((*sp, cfg.in_channels), dtype=np.float32) for sp in REQUESTS]
     seg.warmup([REQUESTS[0]])
     total = 0
     for sp, vol in zip(REQUESTS, vols):
-        out, sec, n, peak = run_request(seg, vol, CONV3D_VALID)
+        out, sec, n, peak = run_request(seg, vol, kernel)
         total += n
         print(
             f"request {sp}: {sec:.3f} s, {math.prod(sp) / sec / 1e6:.2f} MVx/s, "
-            f"{n} K1 launches = 15 x {n // 15} tile batches, peak device memory "
-            f"{peak / 2**30:.2f} GiB, p in [{out.min():.4f}, {out.max():.4f}]",
+            f"{n} K1 launches = 15 x {n // 15} tile batches ({kernel.route_launches}), "
+            f"peak device memory {peak / 2**30:.2f} GiB, p in [{out.min():.4f}, {out.max():.4f}]",
             flush=True,
         )
         if sp == REQUESTS[0]:
             p_bf16 = out
 
     seg32 = Segmenter(model, dtype=torch.float32, device=dev, tile_cfg=tile_cfg)
-    p_k, sec, n, _ = run_request(seg32, vols[0], CONV3D_VALID)
+    p_k, sec, n, _ = run_request(seg32, vols[0], kernel)
     total += n
     plain_apply = compile_serving_apply(
         seg32.model, dtype=torch.float32, device=dev, conv=conv3d_valid_plain
@@ -956,27 +972,18 @@ def main() -> int:
         raise AssertionError(f"float32 K1 path differs from plain path by {d32}")
     profile_device(
         f"request {REQUESTS[-1]}", lambda: seg.predict(vols[-1]),
-        {"K1": "conv3d_valid_kernel"},
+        {"K1": "conv3d_valid"},
     )
-    del vols, seg32, plain_apply
-    torch.cuda.empty_cache()
+    return total
 
-    marks.append(("slice 1", time.perf_counter()))
 
-    # phase 6: K2 against its plain version at the main path's shapes
-    print("K2 vs plain (exact), axes (0, 1):")
-    k2_rows = []
-    for shape in EDT_SHAPES:
-        k2_rows.append(check_edt(shape, dev))
-        torch.cuda.empty_cache()
-
-    marks.append(("K2 checks", time.perf_counter()))
-
-    # phase 7: slice 2's path on the bench scene
-    scene = np.random.default_rng(SEED).random((*BENCH_SCENE, cfg.in_channels), np.float32)
-    (mask, cand, ws), counts = slice2_path(model, scene, dev, kernels)
+def slice2_phase(model, dev, kernels) -> dict:
+    """Phase 7: slice 2's path on the bench scene, then its instance stage
+    once more under the profiler.  Returns the launch counts."""
     from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
 
+    scene = np.random.default_rng(SEED).random((*BENCH_SCENE, model.config.in_channels), np.float32)
+    (mask, cand, ws), counts = slice2_path(model, scene, dev, kernels)
     profile_device(
         "the instance stage",
         lambda: generate_unique_segmentation_mask(
@@ -984,45 +991,164 @@ def main() -> int:
         ),
         {"K2": "edt_pass_kernel"},
     )
-    del scene, mask, cand
-    torch.cuda.empty_cache()
+    return counts
 
-    marks.append(("slice 2", time.perf_counter()))
 
-    # phase 8: the instance stage with K2 against the plain EDT
-    check_instance_stage(dev)
-    torch.cuda.empty_cache()
-    marks.append(("instance blobs", time.perf_counter()))
+# phases that --phases can pick, in the order they run, and the kernels
+# each launches
+PHASES = {
+    "k1": ("K1",),
+    "k3": ("K3",),
+    "slice1": ("K1",),
+    "k2": ("K2",),
+    "slice2": ("K1", "K2"),
+    "blobs": ("K2",),
+    "slice3": ("K1", "K2", "host"),
+}
 
-    # phase 9: slice 3's path, analyze on the pipeline scene
-    counts3 = analyze_phase(model, dev, kernels)
-    marks.append(("slice 3", time.perf_counter()))
 
-    # phase 10: results
-    for row in rows:
-        row["launches"] = total + counts["K1"] + counts3["K1"]
-    for row in k2_rows:
-        row["launches"] = counts["K2"] + counts3["K2"]
-    for row in k3_rows:
-        row["launches"] = counts["K3"] + counts3["K3"]
+def parse_phases(argv) -> list:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch port.")
+    ap.add_argument(
+        "--phases", default="all",
+        help="comma-separated phases to run, of " + ", ".join(PHASES)
+        + " (default: all). The card line and the builds always run; a subset reports"
+        " no launch counts and ends with a partial line, not the result line.",
+    )
+    args = ap.parse_args(argv)
+    if args.phases == "all":
+        return list(PHASES)
+    chosen = args.phases.split(",")
+    unknown = set(chosen) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return [p for p in PHASES if p in chosen]
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not (Path(__file__).resolve().parent / "hcunet_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 1
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.csrc import build_all
+    from hcunet_tpu_torch.ops.conv import CONV3D_VALID
+    from hcunet_tpu_torch.ops.distance import EDT_PASS
+    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED
+    from hcunet_tpu_torch.ops.watershed import WATERSHED_HOST
+
+    t_start = time.perf_counter()
+    marks = [("start", t_start)]  # (phase, time it ended)
+    dev = torch.device("cuda")
+    # phase 1: the card
+    card = card_line()
+    print(f"card: {card}; torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}; "
+          f"phases: {', '.join(phases)}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(
-        f"main path: slice 1 {total} K1 launches; slice 2 {counts['K1']} K1, "
-        f"{counts['K2']} K2 and {counts['K3']} K3 launches; slice 3 {counts3['K1']} K1, "
-        f"{counts3['K2']} K2 and {counts3['K3']} K3 launches; total "
-        f"{time.perf_counter() - t_start:.1f} s; phase seconds "
+        f"TF32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    )
+
+    # phase 2: build the kernels the phases launch, one nvcc each, and the
+    # host flood with g++, all together
+    kernels = {"K1": CONV3D_VALID, "K2": EDT_PASS, "K3": DOT_BLOCKED}
+    needed = {k for p in phases for k in PHASES[p]}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(WATERSHED_HOST.load) if "host" in needed else None
+        build_all(k for name, k in kernels.items() if name in needed)
+        if host is not None:
+            host.result()
+    built = [f"{name} {k.build_seconds:.1f} s" for name, k in kernels.items() if name in needed]
+    if host is not None:
+        built.append(f"host flood {WATERSHED_HOST.build_seconds:.1f} s")
+    print(f"built by nvcc for sm_90a (the host flood by g++) in "
+          f"{time.perf_counter() - t0:.1f} s: {', '.join(built)}", flush=True)
+    marks.append(("builds", time.perf_counter()))
+
+    cfg = UNetConfig.production_3d()
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg, gen)
+    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
+    print(f"tile geometry: {seg.tile_cfg}")
+    rows, k2_rows, k3_rows = [], [], []
+    total = 0
+    counts = counts3 = dict.fromkeys(kernels, 0)
+
+    layers = record_layers(seg.model, seg.tile_cfg, dev) if {"k1", "k3"} & set(phases) else []
+    # phase 3: K1 against its plain version at the main path's shapes
+    if "k1" in phases:
+        rows = k1_phase(layers, gen, dev)
+        marks.append(("K1 checks", time.perf_counter()))
+    # phase 4: K3 against its plain version, and beside K1
+    if "k3" in phases:
+        k3_rows = dot_phase([gemm_shape(x_shape, w) for x_shape, w, _b, _r in layers], rows, dev)
+        marks.append(("K3 checks", time.perf_counter()))
+    del layers
+    # phase 5: slice 1's path
+    if "slice1" in phases:
+        total = slice1_phase(model, seg, dev, CONV3D_VALID)
+        marks.append(("slice 1", time.perf_counter()))
+    del seg
+    torch.cuda.empty_cache()
+    # phase 6: K2 against its plain version at the main path's shapes
+    if "k2" in phases:
+        print("K2 vs plain (exact), axes (0, 1):")
+        for shape in EDT_SHAPES:
+            k2_rows.append(check_edt(shape, dev))
+            torch.cuda.empty_cache()
+        marks.append(("K2 checks", time.perf_counter()))
+    # phase 7: slice 2's path on the bench scene
+    if "slice2" in phases:
+        counts = slice2_phase(model, dev, kernels)
+        torch.cuda.empty_cache()
+        marks.append(("slice 2", time.perf_counter()))
+    # phase 8: the instance stage with K2 against the plain EDT
+    if "blobs" in phases:
+        check_instance_stage(dev)
+        torch.cuda.empty_cache()
+        marks.append(("instance blobs", time.perf_counter()))
+    # phase 9: slice 3's path, analyze on the pipeline scene
+    if "slice3" in phases:
+        counts3 = analyze_phase(model, dev, kernels)
+        marks.append(("slice 3", time.perf_counter()))
+
+    # phase 10: results.  A kernel's launches are those of the whole main
+    # path (slices 1-3): a run of fewer phases gives none, and ends with a
+    # line that says which phases ran in place of the result line.
+    full = phases == list(PHASES)
+    for kernel_rows, name in ((rows, "K1"), (k2_rows, "K2"), (k3_rows, "K3")):
+        slice1 = total if name == "K1" else 0
+        for row in kernel_rows:
+            row["launches"] = slice1 + counts[name] + counts3[name] if full else None
+    paths = {"slice1": f"slice 1 {total} K1",
+             "slice2": f"slice 2 {counts['K1']} K1, {counts['K2']} K2 and {counts['K3']} K3",
+             "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3"}
+    print(
+        "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
+        + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "
         + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:]))
     )
     rows += k2_rows + k3_rows
     print(json.dumps({"kernels": rows}))
     print(card)
-    print(json.dumps({
-        "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
-    }))
+    device = {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }
+    if full:
+        print(json.dumps({"ok": True, "device": device}))
+    else:
+        print(json.dumps({"partial": True, "phases": phases, "device": device}))
     return 0
 
 

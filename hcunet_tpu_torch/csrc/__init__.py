@@ -5,9 +5,9 @@ for Hopper (``sm_90a``); the host flood ``watershed_host.cpp`` (the port's
 copy of ``native/watershed.cpp``) is compiled by ``g++`` with the flags of
 ``native/Makefile``.  Libraries go into ``build/`` at the repository root on
 first use and are loaded with ``ctypes``.  The library name carries a hash
-of the source and the compiler's flags, so an edited source is rebuilt and a
-stale library is never loaded.  Nothing is built or imported when a module
-of the port is imported.
+of the source, the headers it includes and the compiler's flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing is built or imported when a module of the port is imported.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -59,10 +60,32 @@ def _executable(compiler: str) -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[Path]:
+    """``csrc/<source>`` and the headers beside it that it includes with
+    quotes, transitively."""
+    seen, todo = [], [CSRC_DIR / source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header.exists():
+                todo.append(header)
+    return seen
+
+
 def library_path(source: str, compiler: str = "nvcc") -> Path:
     """Where the shared library of ``csrc/<source>`` is built by
-    ``compiler`` (``"nvcc"`` or ``"g++"``)."""
-    h = hashlib.sha1((CSRC_DIR / source).read_bytes())
+    ``compiler`` (``"nvcc"`` or ``"g++"``): the name hashes the source, the
+    ``csrc/`` headers it includes and the flags."""
+    h = hashlib.sha1()
+    for path in _sources(source):
+        h.update(path.read_bytes())
     h.update(" ".join((compiler, *FLAGS[compiler])).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
@@ -112,14 +135,18 @@ def build_all(kernels) -> None:
 class CudaKernel:
     """One kernel library: built and loaded at first use, with a launch count.
 
+    ``source`` names a file in ``csrc/``; an absolute path builds a source
+    from elsewhere (another commit's copy, say) the same way.
     ``launches`` is a plain integer that the wrapper raises by one each time
     it launches the kernel, so a run can show which path it took."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, routes: tuple = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        # launches by path, for a kernel whose C entry point picks one
+        self.route_launches = dict.fromkeys(routes, 0)
         self.build_seconds = 0.0
         self._fn = None
 

@@ -6,7 +6,9 @@ conv weights ``[*k, Cin/groups, Cout]``, transpose-conv weights
 ``[*k, Cin, Cout]``.
 
 The valid conv is kernel K1, ``csrc/conv3d_valid.cu``, a hand-written CUDA
-implicit GEMM with the bias and ReLU in its epilogue.  :func:`conv3d_valid`
+implicit GEMM with the bias and ReLU in its epilogue.  It has two paths
+(:func:`conv3d_valid_route`): a cp.async ring feeding wgmma for bfloat16
+with ``Cin % 8 == 0``, and a basic one for the rest.  :func:`conv3d_valid`
 launches it for a CUDA tensor and raises if it cannot; only a tensor on the
 CPU takes :func:`conv3d_valid_plain`, the same function in plain PyTorch.
 Transpose convs and pooling are plain PyTorch, as the JAX package left them
@@ -25,13 +27,28 @@ from hcunet_tpu_torch.csrc import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# K1's two paths, by the number its C entry point conv3d_valid_route gives:
+# the C entry point decides, and conv3d_valid_route below names the same
+# choice (a CUDA test holds the two to each other)
+CONV3D_ROUTES = ("basic", "ring")
+
 CONV3D_VALID = CudaKernel(
     "conv3d_valid.cu",
     "conv3d_valid",
     [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    routes=CONV3D_ROUTES,
 )
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def conv3d_valid_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The path K1 takes for a call, a function of (dtype, Cin, Cout) alone:
+    ``"ring"`` (the cp.async ring feeding wgmma) for bfloat16 with
+    ``Cin % 8 == 0``, else ``"basic"``.  The same rule as the C entry point
+    ``conv3d_valid_route`` in ``csrc/conv3d_valid.cu``, which decides."""
+    del cout  # no path depends on it yet
+    return "ring" if dtype == torch.bfloat16 and cin % 8 == 0 else "basic"
 
 
 def _tuple(v, n: int) -> Tuple[int, ...]:
@@ -79,9 +96,12 @@ def conv3d_valid(
     float32 or bfloat16 (the same for both); ``bias`` ``[Cout]`` float32.
     Returns ``[B, Xo, Yo, Zo, Cout]`` in ``x``'s dtype, summed in float32.
 
-    A CUDA tensor launches K1 (``csrc/conv3d_valid.cu``); a CPU tensor runs
+    A CUDA tensor launches K1 (``csrc/conv3d_valid.cu``) on the path
+    :func:`conv3d_valid_route` names; a CPU tensor runs
     :func:`conv3d_valid_plain`.  Any other device, or an input K1 does not
-    take, raises.
+    take, raises.  The ring path copies 16 bytes at a time, so there ``x``
+    and ``w`` must start on a 16-byte boundary (a view at an odd element
+    offset does not); the basic path takes any contiguous input.
     """
     if x.device.type == "cpu":
         return conv3d_valid_plain(x, w, bias, relu, dilation)
@@ -116,16 +136,18 @@ def conv3d_valid(
     if B == 0:
         return y
     fn = CONV3D_VALID.function()
+    dt = _KERNEL_DTYPES[x.dtype]
     # the launch goes to the current device, which must be x's
     with torch.cuda.device(x.device):
         rc = fn(
-            _KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            dt, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             y.data_ptr(), B, X, Y, Z, cin, kx, ky, kz, *dil, cout, int(relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"conv3d_valid kernel launch failed: CUDA error {rc}")
     CONV3D_VALID.launches += 1
+    CONV3D_VALID.route_launches[conv3d_valid_route(x.dtype, cin, cout)] += 1
     return y
 
 

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Kernel K1 against another build of its source, layer by layer, on one card.
+
+Run from the repository root on a machine with an NVIDIA GPU and the CUDA
+toolkit::
+
+    python3 k1_compare.py --other PATH/TO/OTHER/conv3d_valid.cu [--label parent]
+
+``--other`` is a ``conv3d_valid.cu`` with the same C interface, for
+instance a parent commit's copy unpacked with ``git archive``; it is built
+like the port's own kernels.  At the 15 valid-conv shapes of the production
+U-Net's serving forward (one tile batch at the geometry the port picks for
+this card; random input and the folded random weights of
+``chip_smoke.build_model``), in bfloat16, each layer runs the other build
+(held to the plain version with ``chip_smoke.conv_error``), then
+``chip_smoke.check_kernel`` (this K1 against the plain version, its time,
+cuDNN's and the bound), then the other build again; its time is the mean
+of the two.  Then it serves the bench scene (2304 x 2304 x 15, random, seed
+0) through ``Segmenter.predict`` with each build's conv in the order other,
+this, this, other, host clock around each request.  Prints the layers, the
+sums, the requests, the card line and a JSON line of the rows.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path, help="another conv3d_valid.cu")
+    ap.add_argument("--label", default="other", help="the other build's name in the output")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("k1_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.csrc import CudaKernel, build_all
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid_plain
+
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    other_k1 = CudaKernel(str(args.other.resolve()), CONV3D_VALID.symbol, CONV3D_VALID.argtypes)
+    build_all([CONV3D_VALID, other_k1])
+
+    def other(x, w, b, relu):
+        """The other build's conv3d_valid, called as the port's wrapper
+        calls it for a bfloat16, undilated conv."""
+        B, X, Y, Z, cin = x.shape
+        kx, ky, kz, _, cout = w.shape
+        y = torch.empty((B, X - kx + 1, Y - ky + 1, Z - kz + 1, cout), device=dev, dtype=x.dtype)
+        rc = other_k1.function()(
+            1, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, X, Y, Z, cin,
+            kx, ky, kz, 1, 1, 1, cout, int(relu), torch.cuda.current_stream().cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"{args.label} conv3d_valid failed: CUDA error {rc}")
+        return y
+
+    model = cs.build_model(UNetConfig.production_3d(), torch.Generator().manual_seed(cs.SEED))
+    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
+    layers = cs.record_layers(seg.model, seg.tile_cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    rows = []
+    print(f"card: {card}; K1 ({CONV3D_VALID.source}) vs {args.label} ({args.other}), bf16")
+    for name, (x_shape, w, b, relu) in zip(cs.LAYER_NAMES, layers):
+        x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
+        w = w.to(torch.bfloat16).contiguous()
+        err, tol = cs.conv_error(other(x, w, b, relu), conv3d_valid_plain(x, w, b, relu))
+        if not err <= tol:
+            raise AssertionError(f"{name}: {args.label} max error {err} > {tol}")
+        t_other = cs.cuda_ms(lambda: other(x, w, b, relu))
+        row = cs.check_kernel(name, x, w, b, relu)
+        row[f"{args.label}_ms"] = (t_other + cs.cuda_ms(lambda: other(x, w, b, relu))) / 2
+        row[f"{args.label}_max_abs_err"] = err
+        rows.append(row)
+        print(f"  {'':34s} {args.label} {row[f'{args.label}_ms']:8.3f} ms, err {err:.3e}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    cs.k1_sums(rows)
+    for label, sel in (("15 layers", rows), ("ring layers", [r for r in rows if r["k1_route"] == "ring"])):
+        print(f"{args.label}, {label} ({len(sel)}): {sum(r[f'{args.label}_ms'] for r in sel):.3f} ms")
+    del layers
+    torch.cuda.empty_cache()
+
+    # the bench scene end to end, the serving forward on each build's conv
+    vol = np.random.default_rng(cs.SEED).random((*cs.BENCH_SCENE, 4), dtype=np.float32)
+    seg_other = Segmenter(model, dtype=torch.bfloat16, device=dev, tile_cfg=seg.tile_cfg)
+    seg_other.apply_fn = compile_serving_apply(
+        seg_other.model, dtype=torch.bfloat16, device=dev, conv=other
+    )
+    mvx = math.prod(cs.BENCH_SCENE) / 1e6
+    seg_other.warmup([cs.BENCH_SCENE])
+    seg.warmup([cs.BENCH_SCENE])
+    requests = {}
+    for label, server in ((args.label, seg_other), ("this", seg), ("this", seg), (args.label, seg_other)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.predict(vol)
+        requests.setdefault(label, []).append(mvx / (time.perf_counter() - t0))
+    print(f"bench scene {cs.BENCH_SCENE} predict, MVx/s: " + "; ".join(
+        f"{label} {', '.join(f'{r:.2f}' for r in rs)}" for label, rs in requests.items()))
+    print(card)
+    print(json.dumps({"layers": rows, "bench_scene_mvx_per_s": requests}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,11 +8,20 @@ no JAX, so they also run where JAX is not installed::
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid, conv3d_valid_plain
+from hcunet_tpu_torch.csrc import build
+from hcunet_tpu_torch.ops.conv import (
+    CONV3D_ROUTES,
+    CONV3D_VALID,
+    conv3d_valid,
+    conv3d_valid_plain,
+    conv3d_valid_route,
+)
 from hcunet_tpu_torch.ops.distance import EDT_PASS, edt, edt_axis_pass, edt_plain
 from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked, dot_blocked_plain
 
@@ -50,11 +59,14 @@ def test_conv3d_valid_matches_plain(cuda, case, dtype):
     w = torch.from_numpy(rng.standard_normal(ws, np.float32) / np.sqrt(k))
     w = w.to(cuda, dtype)
     b = torch.from_numpy(rng.standard_normal(ws[-1:], np.float32)).to(cuda)
+    route = conv3d_valid_route(dtype, xs[-1], ws[-1])
     for relu in (False, True):
         before = CONV3D_VALID.launches
+        before_route = CONV3D_VALID.route_launches[route]
         got = conv3d_valid(x, w, b, relu, dil)
         torch.cuda.synchronize()
         assert CONV3D_VALID.launches == before + 1
+        assert CONV3D_VALID.route_launches[route] == before_route + 1
         want = conv3d_valid_plain(x, w, b, relu, dil)
         assert got.shape == want.shape and got.dtype == dtype
         scale = max(1.0, float(want.float().abs().max()))
@@ -64,6 +76,76 @@ def test_conv3d_valid_matches_plain(cuda, case, dtype):
         tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol, (case, relu, err, tol)
+
+
+# K1's ring path (bfloat16, Cin % 8 == 0): Cin 8 to 128, Cout 1 (weights
+# copied element by element) to 200 (ragged N tiles at 24, 80, 130, 136 and
+# 200; two 128-wide N tiles from 130 up, 130 with its weights copied
+# element by element), K tails (Cin 24: K = 432, not a multiple of the
+# 64-deep stage), K = 2304, dilation 2, M never a multiple of the 128-row
+# block.
+RING_CASES = [
+    ((1, 14, 13, 9, 8), (3, 3, 2, 8, 16), 1),
+    ((2, 11, 9, 7, 16), (3, 3, 2, 16, 1), 1),
+    ((3, 9, 9, 4, 16), (1, 1, 1, 16, 1), 1),
+    ((2, 10, 11, 6, 24), (3, 3, 2, 24, 24), 1),
+    ((1, 12, 12, 5, 32), (3, 3, 2, 32, 64), 1),
+    ((2, 10, 9, 6, 64), (3, 3, 2, 64, 80), 1),
+    ((1, 10, 9, 6, 128), (3, 3, 2, 128, 128), 1),
+    ((1, 9, 8, 7, 128), (3, 3, 2, 128, 64), 1),
+    ((1, 13, 12, 9, 16), (3, 3, 2, 16, 16), 2),
+    ((2, 12, 10, 8, 32), (3, 3, 2, 32, 16), 2),
+    ((1, 9, 10, 6, 16), (3, 3, 2, 16, 200), 1),
+    ((2, 8, 9, 7, 32), (3, 3, 2, 32, 136), 2),
+    ((1, 10, 9, 5, 24), (3, 3, 1, 24, 130), 1),
+]
+
+
+@pytest.mark.parametrize("case", range(len(RING_CASES)))
+def test_conv3d_valid_ring_path_matches_plain(cuda, case):
+    xs, ws, dil = RING_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    k = int(np.prod(ws[:4]))
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal(ws, np.float32) / np.sqrt(k))
+    w = w.to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(ws[-1:], np.float32)).to(cuda)
+    assert conv3d_valid_route(torch.bfloat16, xs[-1], ws[-1]) == "ring"
+    for relu in (False, True):
+        before = dict(CONV3D_VALID.route_launches)
+        got = conv3d_valid(x, w, b, relu, dil)
+        torch.cuda.synchronize()
+        assert CONV3D_VALID.route_launches == {**before, "ring": before["ring"] + 1}
+        want = conv3d_valid_plain(x, w, b, relu, dil)
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        # as above: one bf16 rounding of a float32 sum on each side
+        tol = 2.0**-7 * max(1.0, float(want.float().abs().max()))
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (case, relu, err, tol)
+
+
+def test_conv3d_valid_route_is_the_c_entry_points(cuda):
+    """The C entry point decides the path; the Python rule, which the
+    wrapper counts launches by, names the same one."""
+    path, _ = build(CONV3D_VALID.source)
+    route = ctypes.CDLL(str(path)).conv3d_valid_route
+    route.argtypes, route.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for cin in range(1, 137):
+            for cout in (1, 16, 24, 64, 80, 128):
+                assert CONV3D_ROUTES[route(code, cin, cout)] == conv3d_valid_route(dtype, cin, cout)
+
+
+def test_conv3d_valid_ring_path_rejects_misaligned_input(cuda):
+    """The ring copies 16 bytes at a time: an input that does not start on
+    a 16-byte boundary raises and launches nothing."""
+    base = torch.zeros(2 * 6 * 6 * 4 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    x = base[1:].view(2, 6, 6, 4, 16)
+    w = torch.zeros((3, 3, 2, 16, 16), device=cuda, dtype=torch.bfloat16)
+    before = CONV3D_VALID.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        conv3d_valid(x, w)
+    assert CONV3D_VALID.launches == before
 
 
 def test_conv3d_valid_rejects_mixed_dtypes(cuda):

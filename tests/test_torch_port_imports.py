@@ -98,8 +98,14 @@ def test_conv_wrapper_takes_plain_version_only_on_cpu():
     x = torch.zeros((1, 5, 5, 4, 3))
     w = torch.zeros((3, 3, 2, 3, 8))
     before = CONV3D_VALID.launches
+    before_routes = dict(CONV3D_VALID.route_launches)
     assert conv3d_valid(x, w).shape == (1, 3, 3, 3, 8)
+    # bf16 with Cin % 8 == 0 (the ring path's inputs) too
+    xb = torch.zeros((1, 5, 5, 4, 16), dtype=torch.bfloat16)
+    wb = torch.zeros((3, 3, 2, 16, 16), dtype=torch.bfloat16)
+    assert conv3d_valid(xb, wb).shape == (1, 3, 3, 3, 16)
     assert CONV3D_VALID.launches == before
+    assert CONV3D_VALID.route_launches == before_routes
     with pytest.raises(ValueError, match="no kernel"):
         conv3d_valid(x.to("meta"), w.to("meta"))
 
