@@ -29,7 +29,11 @@ instead of the result line.  Phases (any failure exits non-zero):
 4. hold K3 against its plain version at the TPU probe's two shapes and at
    the GEMM shape (M, K, N) of each of the 15 K1 layers (a random dense A),
    in bfloat16 and float32, timing the kernel, the plain version and
-   ``torch.matmul``, and print K3's time over K1's per layer;
+   ``torch.matmul``; each row names K3's path (``k3_route``), which must be
+   the ring at both probe cases and at every bf16 layer GEMM but
+   ``out_conv``'s (N = 1), the basic path elsewhere; print the sums over
+   the 15 layer GEMMs beside cuBLAS and the bound, and K3's time over K1's
+   per layer;
 5. slice 1's path: ``Segmenter.predict`` on ``UNetConfig.production_3d()``
    at full width (random He-normal weights and random batch-norm statistics
    from a seed) for three requests, checking that every tile batch launched
@@ -173,8 +177,8 @@ def record_layers(model, tile_cfg, dev):
     return layers
 
 
-def conv_error(got, want) -> tuple[float, float]:
-    """A K1 result's max error against the plain version's, and its
+def kernel_error(got, want) -> tuple[float, float]:
+    """A K1 or K3 result's max error against the plain version's, and its
     tolerance.  float32: both sum in float32 in different orders.  bfloat16:
     both round the float32 sum once, so they differ by at most one bf16 ulp
     (2^-7 relative) where the sums straddle a rounding boundary."""
@@ -202,7 +206,7 @@ def check_kernel(name, x, w, b, relu):
         raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
     want = conv3d_valid_plain(x, w, b, relu)
     torch.cuda.synchronize()
-    err, tol = conv_error(got, want)
+    err, tol = kernel_error(got, want)
     del got, want
 
     x_cf = x.permute(0, 4, 1, 2, 3)
@@ -617,24 +621,37 @@ def check_instance_stage(dev):
     if share < 0.9:
         raise AssertionError(f"only {len(found)} of {len(seeded)} seeded blobs found")
 
-def check_dot(name, x_shape, n, dtype, dev, pieces=None) -> dict:
-    """K3 against its plain version on ``x [*x_shape] @ w [K, n]``; returns a
-    row.  ``pieces``: row counts of the A slices that make up the whole
-    product; each slice is one launch over the same A (``x_shape`` holds one
-    slice), and the times are those of the whole product."""
-    from hcunet_tpu_torch.ops.dot import dot_blocked, dot_blocked_plain
-
+def dot_inputs(x_shape, n, dtype, dev):
+    """K3's inputs from the seed: a random ``x [*x_shape]`` and ``w [K, n]``
+    scaled by 1/sqrt(K)."""
     K = x_shape[-1]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(x_shape, generator=gen, device=dev, dtype=dtype)
     w = (torch.randn((K, n), generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+    return x, w
+
+
+def check_dot(name, x_shape, n, dtype, dev, pieces, route) -> dict:
+    """K3 against its plain version on ``x [*x_shape] @ w [K, n]``; returns a
+    row.  ``pieces``: row counts of the A slices that make up the whole
+    product (None: one launch over ``x``); each slice is one launch over the
+    same A (``x_shape`` holds one slice), and the times are those of the
+    whole product.  ``route``: the path K3 must take."""
+    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked, dot_blocked_plain, dot_blocked_route
+
+    K = x_shape[-1]
+    x, w = dot_inputs(x_shape, n, dtype, dev)
+    if dot_blocked_route(dtype, K, n) != route:
+        raise AssertionError(f"{name}: K3's rule names the {dot_blocked_route(dtype, K, n)} "
+                             f"path, expected {route}")
+    before = dict(DOT_BLOCKED.route_launches)
     got = dot_blocked(x, w)
+    taken = [r for r, c in DOT_BLOCKED.route_launches.items() if c != before[r]]
+    if taken != [route]:
+        raise AssertionError(f"{name}: K3 took the path(s) {taken}, expected {route}")
     want = dot_blocked_plain(x, w)
     torch.cuda.synchronize()
-    scale = max(1.0, float(want.float().abs().max()))
-    # as for K1: float32 sums in other orders; bf16 rounds the sum once
-    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
-    err = float((got.float() - want.float()).abs().max())
+    err, tol = kernel_error(got, want)
     del got, want
     if pieces is None:
         parts = [x]
@@ -657,6 +674,7 @@ def check_dot(name, x_shape, n, dtype, dev, pieces=None) -> dict:
     row = {
         "name": f"dot_blocked[{name},{dt}]",
         "route": "cuda",
+        "k3_route": route,
         "source": "hcunet_tpu_torch/csrc/dot_blocked.cu",
         "replaces": "scripts/probe_pallas_dot.py:35",
         "launches": None,
@@ -668,7 +686,7 @@ def check_dot(name, x_shape, n, dtype, dev, pieces=None) -> dict:
         "library_ms": library_ms,
     }
     print(
-        f"  {row['name']:34s} (M,K,N)=({M},{K},{n}) in {len(parts)} launch(es) err "
+        f"  {row['name']:34s} {route:5s} (M,K,N)=({M},{K},{n}) in {len(parts)} launch(es) err "
         f"{err:.3e} (tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
         f"matmul {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms ({row['bound_by']}, "
         f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {nbytes / kernel_ms / 1e6:.0f} GB/s)",
@@ -679,20 +697,46 @@ def check_dot(name, x_shape, n, dtype, dev, pieces=None) -> dict:
     return row
 
 
+def dot_cases(gemms, dtype) -> list:
+    """K3's cases in ``dtype``: ``(name, x_shape, n, pieces, route)`` for the
+    TPU probe's shapes and each layer GEMM (M, K, N) of ``gemms``, whose A
+    is cut into slices of at most ``DOT_SLICE_ELEMS`` (``pieces``: their row
+    counts).  ``route``: the path K3 must take, the ring at both probe
+    cases and at every bf16 layer GEMM but out_conv's (N = 1), the basic
+    path for out_conv and every float32 case."""
+    ring = "ring" if dtype == torch.bfloat16 else "basic"
+    cases = [(name, x_shape, n, None, ring) for name, x_shape, n in DOT_PROBE_CASES]
+    for name, (M, K, N) in zip(LAYER_NAMES, gemms):
+        per = max(1, min(M, DOT_SLICE_ELEMS // K))
+        pieces = [per] * (M // per) + ([M % per] if M % per else [])
+        cases.append((name, (1, 1, per, K), N, pieces, "basic" if name == "out_conv" else ring))
+    return cases
+
+
+def dot_sums(rows, dt, other=None) -> None:
+    """K3 over the 15 layer GEMMs in ``dt`` beside cuBLAS, the bound and,
+    where given, the rows' ``other`` key."""
+    sel = [r for r in rows if r["name"] in {f"dot_blocked[{n},{dt}]" for n in LAYER_NAMES}]
+    ms, lib, bound = (sum(r[k] for r in sel) for k in ("ms", "library_ms", "bound_ms"))
+    extra = f", {other} {sum(r[other] for r in sel):.3f} ms" if other else ""
+    print(f"K3 {dt}, 15 layer GEMMs: kernel {ms:.3f} ms, cuBLAS {lib:.3f} ms (kernel/cuBLAS "
+          f"{ms / lib:.3f}), bound {bound:.3f} ms (kernel at {100 * bound / ms:.1f}% of it){extra}",
+          flush=True)
+
+
 def dot_phase(gemms, k1_rows, dev) -> list:
     """K3 at the TPU probe's shapes and at each K1 layer's GEMM shape, in
-    bfloat16 and float32; prints K3's time over K1's per layer."""
+    bfloat16 and float32, each on the path it must take (``dot_cases``).
+    Prints the sums over the 15 layer GEMMs beside cuBLAS and the bound, and
+    K3's time over K1's per layer."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         print(f"K3 vs plain, {dtype}:")
-        for name, x_shape, n in DOT_PROBE_CASES:
-            rows.append(check_dot(name, x_shape, n, dtype, dev))
+        for name, x_shape, n, pieces, route in dot_cases(gemms, dtype):
+            rows.append(check_dot(name, x_shape, n, dtype, dev, pieces, route))
             torch.cuda.empty_cache()
-        for name, (M, K, N) in zip(LAYER_NAMES, gemms):
-            per = max(1, min(M, DOT_SLICE_ELEMS // K))
-            pieces = [per] * (M // per) + ([M % per] if M % per else [])
-            rows.append(check_dot(name, (1, 1, per, K), N, dtype, dev, pieces))
-            torch.cuda.empty_cache()
+    for dt in ("bf16", "f32"):
+        dot_sums(rows, dt)
     if not k1_rows:
         return rows
     k1 = {r["name"]: r["ms"] for r in k1_rows}

@@ -132,6 +132,13 @@ def build_all(kernels) -> None:
             fut.result()
 
 
+def aligned16(t):
+    """``t``, or a copy of it in a fresh allocation (which is aligned) where
+    ``t`` does not start on a 16-byte boundary, as a view at an odd element
+    offset may not: the kernels' 16-byte copies need aligned rows."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class CudaKernel:
     """One kernel library: built and loaded at first use, with a launch count.
 

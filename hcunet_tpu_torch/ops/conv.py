@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from hcunet_tpu_torch.csrc import CudaKernel
+from hcunet_tpu_torch.csrc import CudaKernel, aligned16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -99,9 +99,10 @@ def conv3d_valid(
     A CUDA tensor launches K1 (``csrc/conv3d_valid.cu``) on the path
     :func:`conv3d_valid_route` names; a CPU tensor runs
     :func:`conv3d_valid_plain`.  Any other device, or an input K1 does not
-    take, raises.  The ring path copies 16 bytes at a time, so there ``x``
-    and ``w`` must start on a 16-byte boundary (a view at an odd element
-    offset does not); the basic path takes any contiguous input.
+    take, raises.  The ring path copies 16 bytes at a time, so there an
+    ``x`` or ``w`` that does not start on a 16-byte boundary (a view at an
+    odd element offset) is first copied once into a fresh, aligned
+    allocation; the basic path takes any contiguous input as it is.
     """
     if x.device.type == "cpu":
         return conv3d_valid_plain(x, w, bias, relu, dilation)
@@ -135,6 +136,9 @@ def conv3d_valid(
     y = torch.empty((B, *out_sp, cout), device=x.device, dtype=x.dtype)
     if B == 0:
         return y
+    route = conv3d_valid_route(x.dtype, cin, cout)
+    if route == "ring":
+        x, w = aligned16(x), aligned16(w)
     fn = CONV3D_VALID.function()
     dt = _KERNEL_DTYPES[x.dtype]
     # the launch goes to the current device, which must be x's
@@ -147,7 +151,7 @@ def conv3d_valid(
     if rc != 0:
         raise RuntimeError(f"conv3d_valid kernel launch failed: CUDA error {rc}")
     CONV3D_VALID.launches += 1
-    CONV3D_VALID.route_launches[conv3d_valid_route(x.dtype, cin, cout)] += 1
+    CONV3D_VALID.route_launches[route] += 1
     return y
 
 

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Kernel K1 against another build of its source, layer by layer, on one card.
+"""Kernel K1 or K3 against another build of its source, on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit::
 
     python3 k1_compare.py --other PATH/TO/OTHER/conv3d_valid.cu [--label parent]
+    python3 k1_compare.py --kernel k3 --other PATH/TO/OTHER/dot_blocked.cu [--label parent]
 
-``--other`` is a ``conv3d_valid.cu`` with the same C interface, for
-instance a parent commit's copy unpacked with ``git archive``; it is built
-like the port's own kernels.  At the 15 valid-conv shapes of the production
-U-Net's serving forward (one tile batch at the geometry the port picks for
-this card; random input and the folded random weights of
+``--other`` is a source with the same C interface, for instance a parent
+commit's copy unpacked with ``git archive``; it is built like the port's own
+kernels.
+
+K1 (the default): at the 15 valid-conv shapes of the production U-Net's
+serving forward (one tile batch at the geometry the port picks for this
+card; random input and the folded random weights of
 ``chip_smoke.build_model``), in bfloat16, each layer runs the other build
-(held to the plain version with ``chip_smoke.conv_error``), then
+(held to the plain version with ``chip_smoke.kernel_error``), then
 ``chip_smoke.check_kernel`` (this K1 against the plain version, its time,
 cuDNN's and the bound), then the other build again; its time is the mean
 of the two.  Then it serves the bench scene (2304 x 2304 x 15, random, seed
 0) through ``Segmenter.predict`` with each build's conv in the order other,
 this, this, other, host clock around each request.  Prints the layers, the
 sums, the requests, the card line and a JSON line of the rows.
+
+K3 (``--kernel k3``): at the TPU probe's two shapes and the 15 layer GEMMs
+of one tile batch (``chip_smoke.dot_cases``), in bfloat16, on the inputs of
+``chip_smoke.dot_inputs``, the other build (held to the plain version),
+then ``chip_smoke.check_dot`` (this K3 on the path it must take against the
+plain version, its time, ``torch.matmul``'s and the bound), then the other
+build again; its time is the mean of the two.  Prints the cases, the sums
+over the layer GEMMs, the card line and a JSON line of the rows.
 """
 
 from __future__ import annotations
@@ -36,23 +47,13 @@ import torch
 import chip_smoke as cs
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, type=Path, help="another conv3d_valid.cu")
-    ap.add_argument("--label", default="other", help="the other build's name in the output")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("k1_compare: CUDA is not available", file=sys.stderr)
-        return 1
+def compare_k1(args, card, dev) -> None:
     from hcunet_tpu_torch.config import UNetConfig
     from hcunet_tpu_torch.csrc import CudaKernel, build_all
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.infer.serving import Segmenter
     from hcunet_tpu_torch.ops.conv import CONV3D_VALID, conv3d_valid_plain
 
-    dev = torch.device("cuda")
-    card = cs.card_line()
-    torch.backends.cudnn.allow_tf32 = False
     other_k1 = CudaKernel(str(args.other.resolve()), CONV3D_VALID.symbol, CONV3D_VALID.argtypes)
     build_all([CONV3D_VALID, other_k1])
 
@@ -79,7 +80,7 @@ def main(argv=None) -> int:
     for name, (x_shape, w, b, relu) in zip(cs.LAYER_NAMES, layers):
         x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
         w = w.to(torch.bfloat16).contiguous()
-        err, tol = cs.conv_error(other(x, w, b, relu), conv3d_valid_plain(x, w, b, relu))
+        err, tol = cs.kernel_error(other(x, w, b, relu), conv3d_valid_plain(x, w, b, relu))
         if not err <= tol:
             raise AssertionError(f"{name}: {args.label} max error {err} > {tol}")
         t_other = cs.cuda_ms(lambda: other(x, w, b, relu))
@@ -115,6 +116,76 @@ def main(argv=None) -> int:
         f"{label} {', '.join(f'{r:.2f}' for r in rs)}" for label, rs in requests.items()))
     print(card)
     print(json.dumps({"layers": rows, "bench_scene_mvx_per_s": requests}))
+
+
+def compare_k3(args, card, dev) -> None:
+    from hcunet_tpu_torch.csrc import CudaKernel, build_all
+    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked_plain
+
+    other_k3 = CudaKernel(str(args.other.resolve()), DOT_BLOCKED.symbol, DOT_BLOCKED.argtypes)
+    build_all([DOT_BLOCKED, other_k3])
+
+    def other(x, w):
+        """The other build's dot_blocked in bfloat16, called as the port's
+        wrapper calls it."""
+        K, N = w.shape
+        y = torch.empty((*x.shape[:-1], N), device=dev, dtype=x.dtype)
+        rc = other_k3.function()(
+            1, x.data_ptr(), w.data_ptr(), y.data_ptr(), y.numel() // N, K, N,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"{args.label} dot_blocked failed: CUDA error {rc}")
+        return y
+
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.infer.serving import Segmenter
+
+    model = cs.build_model(UNetConfig.production_3d(), torch.Generator().manual_seed(cs.SEED))
+    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
+    gemms = [cs.gemm_shape(x_shape, w) for x_shape, w, _b, _r in
+             cs.record_layers(seg.model, seg.tile_cfg, dev)]
+    del seg
+    torch.cuda.empty_cache()
+    key = f"{args.label}_ms"
+    rows = []
+    print(f"card: {card}; K3 ({DOT_BLOCKED.source}) vs {args.label} ({args.other}), bf16")
+    for name, x_shape, n, pieces, route in cs.dot_cases(gemms, torch.bfloat16):
+        x, w = cs.dot_inputs(x_shape, n, torch.bfloat16, dev)
+        parts = [x] if pieces is None else [x[:, :, :p] for p in pieces]
+        err, tol = cs.kernel_error(other(x, w), dot_blocked_plain(x, w))
+        if not err <= tol:
+            raise AssertionError(f"{name}: {args.label} max error {err} > {tol}")
+        t_other = cs.cuda_ms(lambda: [other(p, w) for p in parts])
+        row = cs.check_dot(name, x_shape, n, torch.bfloat16, dev, pieces, route)
+        row[key] = (t_other + cs.cuda_ms(lambda: [other(p, w) for p in parts])) / 2
+        row[f"{args.label}_max_abs_err"] = err
+        rows.append(row)
+        print(f"  {'':34s} {args.label} {row[key]:8.3f} ms, err {err:.3e}; "
+              f"this/{args.label} {row['ms'] / row[key]:.3f}, this/matmul "
+              f"{row['ms'] / row['library_ms']:.3f}, bound/this {row['bound_ms'] / row['ms']:.3f}",
+              flush=True)
+        del x, w, parts
+        torch.cuda.empty_cache()
+    cs.dot_sums(rows, "bf16", key)
+    print(card)
+    print(json.dumps({"k3": rows}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("k1", "k3"), default="k1", help="the kernel to compare")
+    ap.add_argument("--other", required=True, type=Path,
+                    help="another conv3d_valid.cu (k1) or dot_blocked.cu (k3)")
+    ap.add_argument("--label", default="other", help="the other build's name in the output")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("k1_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    {"k1": compare_k1, "k3": compare_k3}[args.kernel](args, cs.card_line(), dev)
     return 0
 
 

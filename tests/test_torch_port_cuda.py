@@ -23,7 +23,13 @@ from hcunet_tpu_torch.ops.conv import (
     conv3d_valid_route,
 )
 from hcunet_tpu_torch.ops.distance import EDT_PASS, edt, edt_axis_pass, edt_plain
-from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked, dot_blocked_plain
+from hcunet_tpu_torch.ops.dot import (
+    DOT_BLOCKED,
+    DOT_ROUTES,
+    dot_blocked,
+    dot_blocked_plain,
+    dot_blocked_route,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,14 +144,29 @@ def test_conv3d_valid_route_is_the_c_entry_points(cuda):
 
 def test_conv3d_valid_ring_path_rejects_misaligned_input(cuda):
     """The ring copies 16 bytes at a time: an input that does not start on
-    a 16-byte boundary raises and launches nothing."""
-    base = torch.zeros(2 * 6 * 6 * 4 * 16 + 1, device=cuda, dtype=torch.bfloat16)
-    x = base[1:].view(2, 6, 6, 4, 16)
-    w = torch.zeros((3, 3, 2, 16, 16), device=cuda, dtype=torch.bfloat16)
-    before = CONV3D_VALID.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        conv3d_valid(x, w)
-    assert CONV3D_VALID.launches == before
+    a 16-byte boundary is copied once to an aligned allocation and still
+    takes the ring path, with the plain version's result."""
+    rng = np.random.default_rng(7)
+    base = torch.from_numpy(rng.standard_normal(2 * 6 * 6 * 4 * 16 + 1, np.float32))
+    x = base.to(cuda, torch.bfloat16)[1:].view(2, 6, 6, 4, 16)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 2, 16, 16), np.float32) / 17)
+    w = w.to(cuda, torch.bfloat16)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    before = dict(CONV3D_VALID.route_launches)
+    got = conv3d_valid(x, w, None, True)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID.route_launches == {**before, "ring": before["ring"] + 1}
+    want = conv3d_valid_plain(x, w, None, True)
+    tol = 2.0**-7 * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    # a misaligned w as well
+    wm = torch.empty(w.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(w.shape)
+    wm.copy_(w)
+    assert wm.data_ptr() % 16 != 0
+    got = conv3d_valid(x, wm, None, True)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID.route_launches == {**before, "ring": before["ring"] + 2}
+    assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 def test_conv3d_valid_rejects_mixed_dtypes(cuda):
@@ -210,25 +231,97 @@ DOT_CASES = [
 ]
 
 
+def _check_dot(x, w, route):
+    """K3 on ``x @ w`` against its plain version: one launch, on ``route``."""
+    before = dict(DOT_BLOCKED.route_launches)
+    got = dot_blocked(x, w)
+    torch.cuda.synchronize()
+    assert DOT_BLOCKED.route_launches == {**before, route: before[route] + 1}
+    want = dot_blocked_plain(x, w)
+    assert got.shape == want.shape == (*x.shape[:-1], w.shape[1]) and got.dtype == x.dtype
+    scale = max(1.0, float(want.float().abs().max()))
+    # as for K1: float32 sums in other orders; bf16 rounds the float32 sum once
+    tol = 1e-5 * scale if x.dtype == torch.float32 else 2.0**-7 * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (tuple(x.shape), tuple(w.shape), err, tol)
+
+
+def _dot_inputs(xs, n, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.standard_normal((xs[-1], n), np.float32) / np.sqrt(xs[-1]))
+    return x, w.to(device, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", range(len(DOT_CASES)))
 def test_dot_blocked_matches_plain(cuda, case, dtype):
     xs, n = DOT_CASES[case]
-    rng = np.random.default_rng(case)
-    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda, dtype)
-    w = torch.from_numpy(rng.standard_normal((xs[-1], n), np.float32) / np.sqrt(xs[-1]))
-    w = w.to(cuda, dtype)
-    before = DOT_BLOCKED.launches
-    got = dot_blocked(x, w)
-    torch.cuda.synchronize()
-    assert DOT_BLOCKED.launches == before + 1
-    want = dot_blocked_plain(x, w)
-    assert got.shape == want.shape == (*xs[:-1], n) and got.dtype == dtype
-    scale = max(1.0, float(want.float().abs().max()))
-    # as for K1: float32 sums in other orders; bf16 rounds the float32 sum once
-    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= tol, (case, err, tol)
+    x, w = _dot_inputs(xs, n, dtype, case, cuda)
+    route = dot_blocked_route(dtype, xs[-1], n)
+    # only bf16 (2, 7, 9, 72) @ [72, 16] has K and N multiples of 8
+    assert route == ("ring" if dtype == torch.bfloat16 and case == 1 else "basic")
+    _check_dot(x, w, route)
+
+
+# K3's ring path (bfloat16, K % 8 == 0, N % 8 == 0): M ragged against the
+# row tile (and a single row, and exactly one 256-row tile); K not a multiple
+# of the 64-deep stage (8, 24, 72, 136: the zero fill) and deep (2304); N 8
+# to 384 across every column tile (64 wide from N = 8 to 64, zeros past N;
+# 128, 192, 256; above 256 several tiles, the last ragged at 264); enough
+# tiles (up to 418) that each persistent block walks several.
+DOT_RING_CASES = [
+    ((1, 1, 1, 24), 8),
+    ((2, 7, 9, 72), 16),
+    ((1, 11, 13, 136), 40),
+    ((3, 17, 5, 64), 32),
+    ((1, 300, 3, 24), 128),
+    ((2, 9, 31, 136), 256),
+    ((1, 13, 29, 72), 384),
+    ((1, 5, 77, 768), 384),
+    ((1, 3, 100, 2304), 128),
+    ((1, 1, 129, 8), 264),
+    ((1, 2, 67, 576), 64),
+    ((2, 5, 41, 40), 136),
+    ((1, 7, 53, 264), 192),
+    ((1, 1, 256, 128), 128),
+    ((1, 100, 500, 72), 16),
+    ((1, 50, 1000, 576), 128),
+    ((1, 40, 999, 768), 384),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DOT_RING_CASES)))
+def test_dot_blocked_ring_path_matches_plain(cuda, case):
+    xs, n = DOT_RING_CASES[case]
+    assert dot_blocked_route(torch.bfloat16, xs[-1], n) == "ring"
+    x, w = _dot_inputs(xs, n, torch.bfloat16, 200 + case, cuda)
+    _check_dot(x, w, "ring")
+
+
+def test_dot_blocked_ring_path_copies_misaligned_input(cuda):
+    """An x or w that does not start on a 16-byte boundary is copied once
+    to an aligned allocation and still takes the ring path."""
+    x, w = _dot_inputs((1, 9, 21, 72), 40, torch.bfloat16, 300, cuda)
+    xm = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view(x.shape)
+    wm = torch.empty(w.numel() + 1, device=cuda, dtype=w.dtype)[1:].view(w.shape)
+    xm.copy_(x)
+    wm.copy_(w)
+    assert xm.data_ptr() % 16 and wm.data_ptr() % 16 and xm.is_contiguous()
+    for a, b in ((xm, w), (x, wm), (xm, wm)):
+        _check_dot(a, b, "ring")
+
+
+def test_dot_blocked_route_is_the_c_entry_points(cuda):
+    """The C entry point decides the path; the Python rule, which the
+    wrapper counts launches by, names the same one."""
+    path, _ = build(DOT_BLOCKED.source)
+    route = ctypes.CDLL(str(path)).dot_blocked_route
+    route.argtypes, route.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for k in range(0, 137):
+            for n in (1, 5, 8, 16, 33, 40, 128, 384):
+                assert DOT_ROUTES[route(code, k, n)] == dot_blocked_route(dtype, k, n)
 
 
 def test_dot_blocked_raises_on_mixed_devices_and_types(cuda):
