@@ -42,7 +42,9 @@ instead of the result line.  Phases (any failure exits non-zero):
    built on the plain conv;
 6. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
-   1212^2 x 8, and a ragged shape, timing both passes of each;
+   1212^2 x 8, and a ragged shape, on a random mask, and at the first two
+   on a sparse background and on the blob mask, timing both passes of
+   each;
 7. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
    from ``Segmenter(use_probability_map=False)``, candidates from
    ``predict_cell_candidates`` with a full-width ResNet50-FPN ``Detector``
@@ -89,6 +91,7 @@ import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores (TF32 is off)
+H100_F64_FLOPS = 34e12    # float64 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
 REQUESTS = [(1152, 1152, 15), (1000, 900, 15), (2304, 2304, 15)]
@@ -100,6 +103,8 @@ INSTANCE_TILE = (1323, 1323, 15)
 # K2's check shapes: the main path's instance tile, the TPU probe's two
 # (scripts/probe_edt_device.py) and a ragged one
 EDT_SHAPES = [INSTANCE_TILE, (412, 412, 12), (1212, 1212, 8), (517, 1301, 7)]
+# and two inputs that stress the envelope (edt_mask) at two of them
+EDT_STRESS = [(shape, kind) for shape in EDT_SHAPES[:2] for kind in ("sparse", "blobs")]
 PROBE_CASE_1 = ((6, 494, 494, 3, 128), (3, 3, 2, 128, 128))
 # K3's TPU probe shapes (scripts/probe_pallas_dot.py:78-81): x [B, X, Y, K], N
 DOT_PROBE_CASES = [("probe_case_1", (12, 492, 494, 768), 384),
@@ -351,22 +356,40 @@ def profile_device(label: str, fn, kernels):
     return result
 
 
-def check_edt(shape, dev) -> dict:
-    """K2 against its plain version on one volume: the full per-slice EDT
-    must be equal exactly; the two passes are timed on both.  Returns a
-    row."""
+def edt_mask(shape, kind, dev):
+    """K2's check input (nonzero = foreground): ``random`` (60 % foreground,
+    background at [0, 0, :] in every slice, the last slice all foreground:
+    distance 1e6), ``sparse`` (4 background voxels per slice: distances run
+    to about n and the envelopes are short) or ``blobs`` (``blob_scene``'s
+    cell mask)."""
+    if kind == "random":
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        b = torch.rand(shape, generator=gen, device=dev) > 0.4
+        b[0, 0, :] = False
+        b[..., -1] = True
+        return b
+    rng = np.random.default_rng(SEED)
+    if kind == "blobs":
+        return torch.from_numpy(blob_scene(rng, shape)[0] != 0).to(dev)
+    b = np.ones(shape, bool)
+    for z in range(shape[-1]):
+        b[rng.integers(shape[0], size=4), rng.integers(shape[1], size=4), z] = False
+    return torch.from_numpy(b).to(dev)
+
+
+def check_edt(shape, dev, kind="random") -> dict:
+    """K2 against its plain version on one volume (``edt_mask``): the full
+    per-slice EDT must be equal exactly; the two passes are timed on both.
+    Returns a row."""
     from hcunet_tpu_torch.ops.distance import _axis_pass_plain, _dist2, edt, edt_axis_pass, edt_plain
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    b = torch.rand(shape, generator=gen, device=dev) > 0.4
-    b[0, 0, :] = False  # background in every slice
-    b[..., -1] = True   # but one slice all foreground: distance 1e6
+    b = edt_mask(shape, kind, dev)
     got = edt(b, axes=(0, 1))
     want = edt_plain(b, axes=(0, 1))
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError(f"K2 differs from its plain version at {shape}: {err}")
+        raise AssertionError(f"K2 differs from its plain version at {shape} ({kind}): {err}")
     del got, want
 
     d2 = _dist2(b).contiguous()
@@ -374,14 +397,16 @@ def check_edt(shape, dev) -> dict:
     plain_ms = cuda_ms(lambda: _axis_pass_plain(_axis_pass_plain(d2, 0), 1), reps=1)
     # each pass reads and writes the float32 volume once
     t_bytes = 2 * 2 * d2.numel() * 4 / H100_BYTES_PER_S * 1e3
-    # the min-plus form's own floor: an add and a min per (j, k) pair
-    pairs = sum(d2.numel() * shape[ax] for ax in (0, 1))
-    t_minplus = 2 * pairs / H100_F32_FLOPS * 1e3
-    name = "edt_pass[" + "x".join(map(str, shape)) + ",axes01]"
+    # the envelope's own bound: per element and pass at least one boundary
+    # test (~8 FP64 operations) and one output (2 float32 operations); and
+    # each row's chain of dependent steps, n to build and n to sweep
+    t_ops = 2 * d2.numel() * (8 / H100_F64_FLOPS + 2 / H100_F32_FLOPS) * 1e3
+    chain = 2 * shape[0] + 2 * shape[1]
+    name = "edt_pass[" + "x".join(map(str, shape)) + ",axes01" + ("" if kind == "random" else f",{kind}") + "]"
     print(
-        f"  {name:34s} exact; kernel {kernel_ms:8.3f} ms plain {plain_ms:9.3f} ms "
-        f"bound {t_bytes:6.3f} ms (bytes); min-plus floor {t_minplus:6.3f} ms "
-        f"({pairs:.3e} pairs, {2 * pairs / kernel_ms / 1e9:.1f} TFLOP/s)",
+        f"  {name:40s} exact; kernel {kernel_ms:8.3f} ms plain {plain_ms:9.3f} ms "
+        f"bound {t_bytes:6.3f} ms (bytes); envelope ops {t_ops:6.3f} ms, chain {chain} "
+        f"steps a row, {kernel_ms * 1e6 / chain:.1f} ns a step",
         flush=True,
     )
     return {
@@ -1146,8 +1171,8 @@ def main(argv=None) -> int:
     # phase 6: K2 against its plain version at the main path's shapes
     if "k2" in phases:
         print("K2 vs plain (exact), axes (0, 1):")
-        for shape in EDT_SHAPES:
-            k2_rows.append(check_edt(shape, dev))
+        for shape, kind in [(shape, "random") for shape in EDT_SHAPES] + EDT_STRESS:
+            k2_rows.append(check_edt(shape, dev, kind))
             torch.cuda.empty_cache()
         marks.append(("K2 checks", time.perf_counter()))
     # phase 7: slice 2's path on the bench scene

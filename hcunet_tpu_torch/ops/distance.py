@@ -3,19 +3,22 @@
 The reference computes per-z-slice ``cv2.distanceTransform(bin, DIST_L2, 5)``
 (``hcat/segment.py:433-435``) — the distance from each foreground pixel to
 the nearest background pixel.  :func:`edt` is the exact EDT as separable
-min-plus passes, one per axis::
+passes, one per axis::
 
     d2 <- 0 on background, 1e12 on foreground
     d2[.., j, ..] <- min_k d2[.., k, ..] + (j - k)^2       (each axis)
     edt = sqrt(min(d2, 1e12))
 
-Each pass is kernel K2 (``csrc/edt_pass.cu``) for a CUDA tensor and
-:func:`edt_plain`'s pass, plain PyTorch in blocks like the JAX
-``_axis_pass``, for a CPU tensor; any other device raises.  Both round each
-square and each sum once, as XLA does, and a minimum does not round, so the
-two agree bit for bit with each other and with the JAX ``edt`` (at the
-instance tiles every intermediate is an integer below 2^24 or
-float32(1e12)).  :func:`edt_per_slice_host` is the scipy path.
+For a CUDA tensor each pass is kernel K2 (``csrc/edt_pass.cu``): the lower
+envelope of the parabolas ``d2[k] + (j - k)^2``, O(n) per row, with its
+argmin taken exactly.  For a CPU tensor it is :func:`edt_plain`'s pass, the
+min-plus form in plain PyTorch in blocks like the JAX ``_axis_pass``; any
+other device raises.  Both round each square and each sum once, as XLA
+does, and a minimum does not round, so where the inputs are integers
+below 2^53 - n^2 and n <= 4096 (every ``(j - k)^2`` exact in float32) the
+two agree bit for bit with each other and with the JAX ``edt``: this holds
+at the instance tiles, where every intermediate is an integer below 2^24 or
+float32(1e12).  :func:`edt_per_slice_host` is the scipy path.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from hcunet_tpu_torch.csrc import CudaKernel
 _INF = 1e12
 # elements of the [rows, block, n] cost tensor the plain pass materializes
 _PLAIN_BLOCK_ELEMS = 1 << 28
+# K2 takes axes shorter than this (its boundary products stay exact in double)
+_MAX_N = 1 << 26
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 
@@ -72,7 +77,14 @@ def edt_plain(binary: torch.Tensor, axes: Optional[Sequence[int]] = None) -> tor
 
 def edt_axis_pass(dist2: torch.Tensor, axis: int) -> torch.Tensor:
     """One pass of kernel K2 over ``axis`` of a contiguous float32 CUDA
-    tensor; returns a new tensor."""
+    tensor: ``out[.., j, ..] = min_k dist2[.., k, ..] + (j - k)^2`` through
+    the lower envelope, one launch; returns a new tensor.
+
+    Equal bit for bit to :func:`_axis_pass_plain` where ``dist2`` is
+    integer-valued (below 2^53 - n^2) and n <= 4096; for non-negative
+    values, within 2 ulps where n > 4096 (the squares round) and 1 ulp
+    where they are not integers (0 measured in both,
+    ``tests/test_torch_port_cuda.py``).  n must be below 2^26."""
     if dist2.device.type != "cuda":
         raise ValueError(f"edt_axis_pass: no kernel for device {dist2.device}")
     if dist2.dtype != torch.float32 or not dist2.is_contiguous():
@@ -82,6 +94,8 @@ def edt_axis_pass(dist2: torch.Tensor, axis: int) -> torch.Tensor:
     if dist2.numel() == 0:
         return out
     n = dist2.shape[axis]
+    if n >= _MAX_N:
+        raise ValueError(f"edt_axis_pass: axis length {n} is not below 2^26")
     inner = math.prod(dist2.shape[axis + 1:])
     rows = dist2.numel() // n
     fn = EDT_PASS.function()

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Kernel K1 or K3 against another build of its source, on one card.
+"""Kernel K1, K2 or K3 against another build of its source, on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit::
 
     python3 k1_compare.py --other PATH/TO/OTHER/conv3d_valid.cu [--label parent]
+    python3 k1_compare.py --kernel k2 --other PATH/TO/OTHER/edt_pass.cu [--label parent]
     python3 k1_compare.py --kernel k3 --other PATH/TO/OTHER/dot_blocked.cu [--label parent]
 
 ``--other`` is a source with the same C interface, for instance a parent
@@ -22,6 +23,14 @@ of the two.  Then it serves the bench scene (2304 x 2304 x 15, random, seed
 0) through ``Segmenter.predict`` with each build's conv in the order other,
 this, this, other, host clock around each request.  Prints the layers, the
 sums, the requests, the card line and a JSON line of the rows.
+
+K2 (``--kernel k2``): at ``chip_smoke.EDT_SHAPES`` on a random mask and at
+``chip_smoke.EDT_STRESS`` (a sparse background and the blob mask), the
+other build's two passes (axes 0 and 1; the EDT held exactly to the plain
+version), then ``chip_smoke.check_edt`` (this K2 held exactly to the plain
+version, its time, the plain version's and the bound), then the other
+build again; its time is the mean of the two.  Prints the shapes, the card
+line and a JSON line of the rows.
 
 K3 (``--kernel k3``): at the TPU probe's two shapes and the 15 layer GEMMs
 of one tile batch (``chip_smoke.dot_cases``), in bfloat16, on the inputs of
@@ -172,11 +181,55 @@ def compare_k3(args, card, dev) -> None:
     print(json.dumps({"k3": rows}))
 
 
+def compare_k2(args, card, dev) -> None:
+    from hcunet_tpu_torch.csrc import CudaKernel, build_all
+    from hcunet_tpu_torch.ops.distance import EDT_PASS, _dist2, edt_plain
+
+    other_k2 = CudaKernel(str(args.other.resolve()), EDT_PASS.symbol, EDT_PASS.argtypes)
+    build_all([EDT_PASS, other_k2])
+
+    def other_pass(d2, axis):
+        """One pass of the other build's edt_pass, called as the port's
+        wrapper calls it."""
+        out = torch.empty_like(d2)
+        n = d2.shape[axis]
+        rc = other_k2.function()(
+            d2.data_ptr(), out.data_ptr(), d2.numel() // n, n, math.prod(d2.shape[axis + 1:]),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"{args.label} edt_pass failed: CUDA error {rc}")
+        return out
+
+    key = f"{args.label}_ms"
+    rows = []
+    print(f"card: {card}; K2 ({EDT_PASS.source}) vs {args.label} ({args.other}), axes (0, 1)")
+    for shape, kind in [(shape, "random") for shape in cs.EDT_SHAPES] + cs.EDT_STRESS:
+        b = cs.edt_mask(shape, kind, dev)
+        d2 = _dist2(b).contiguous()
+        both = lambda: other_pass(other_pass(d2, 0), 1)
+        got = torch.sqrt(torch.clamp(both(), max=1e12))
+        if not torch.equal(got, edt_plain(b, axes=(0, 1))):
+            raise AssertionError(f"{shape} ({kind}): {args.label} differs from the plain version")
+        del got
+        t_other = cs.cuda_ms(both)
+        row = cs.check_edt(shape, dev, kind)
+        row[key] = (t_other + cs.cuda_ms(both)) / 2
+        rows.append(row)
+        print(f"  {'':40s} {args.label} {row[key]:8.3f} ms; this/{args.label} "
+              f"{row['ms'] / row[key]:.4f}, bound/this {row['bound_ms'] / row['ms']:.3f}",
+              flush=True)
+        del b, d2
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"k2": rows}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k3"), default="k1", help="the kernel to compare")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1", help="the kernel to compare")
     ap.add_argument("--other", required=True, type=Path,
-                    help="another conv3d_valid.cu (k1) or dot_blocked.cu (k3)")
+                    help="another conv3d_valid.cu (k1), edt_pass.cu (k2) or dot_blocked.cu (k3)")
     ap.add_argument("--label", default="other", help="the other build's name in the output")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -185,7 +238,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    {"k1": compare_k1, "k3": compare_k3}[args.kernel](args, cs.card_line(), dev)
+    {"k1": compare_k1, "k2": compare_k2, "k3": compare_k3}[args.kernel](args, cs.card_line(), dev)
     return 0
 
 

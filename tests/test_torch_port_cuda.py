@@ -22,7 +22,13 @@ from hcunet_tpu_torch.ops.conv import (
     conv3d_valid_plain,
     conv3d_valid_route,
 )
-from hcunet_tpu_torch.ops.distance import EDT_PASS, edt, edt_axis_pass, edt_plain
+from hcunet_tpu_torch.ops.distance import (
+    EDT_PASS,
+    _axis_pass_plain,
+    edt,
+    edt_axis_pass,
+    edt_plain,
+)
 from hcunet_tpu_torch.ops.dot import (
     DOT_BLOCKED,
     DOT_ROUTES,
@@ -176,24 +182,61 @@ def test_conv3d_valid_rejects_mixed_dtypes(cuda):
         conv3d_valid(x, w)
 
 
-# (shape, axes): n = 1; n not a multiple of the 128-wide j block; n above
-# the 512-long staged k segment; rows not a multiple of the 16-row block;
-# axis 0 (rows strided in memory), axis 1 and the last axis (contiguous rows)
+# (shape, axes, mask, ulps): the mask's kind (_edt_mask) and the stated
+# tolerance.  Random masks with n not a multiple of 32, rows not a multiple
+# of the 32-row block, axis 0 (rows strided in memory), axis 1 and the last
+# axis (inner == 1, contiguous rows); n = 1 and n = 2; a single zero at
+# each end of a row; all background; one zero per slice and sparse zeros
+# (distances run to about n, the stacks stay short); n = 4097, where
+# 4096^2 = 2^24 is still exact, and n = 6000, where the squares round:
+# K2's stated bound above n = 4096 is 2 ulps (0 measured).
 EDT_CASES = [
-    ((1, 9, 3), (0, 1)),
-    ((37, 20, 3), (0, 1)),
-    ((700, 45, 2), (0, 1)),
-    ((33, 1100, 5), (1,)),
-    ((19, 23, 131), (2,)),
-    ((129, 300), None),
+    ((1, 9, 3), (0, 1), "random", 0),
+    ((37, 20, 3), (0, 1), "random", 0),
+    ((700, 45, 2), (0, 1), "random", 0),
+    ((33, 1100, 5), (1,), "random", 0),
+    ((19, 23, 131), (2,), "random", 0),
+    ((129, 300), None, "random", 0),
+    ((1, 1, 4), (0, 1), "random", 0),
+    ((2, 2, 5), (0, 1), "random", 0),
+    ((40, 30, 3), (0, 1), "ends", 0),
+    ((50, 60, 2), (0, 1), "background", 0),
+    ((300, 200, 4), (0, 1), "one_zero", 0),
+    ((9, 7, 2000), (2,), "sparse", 0),
+    ((4097, 3, 2), (0, 1), "sparse", 2),
+    ((6000, 2, 2), (0, 1), "sparse", 2),
 ]
+
+
+def _edt_mask(kind, shape, rng):
+    """A boolean mask (nonzero = foreground) of one of EDT_CASES' kinds."""
+    if kind == "random":
+        return rng.random(shape) > 0.3
+    if kind == "background":
+        return np.zeros(shape, bool)
+    if kind == "sparse":
+        return rng.random(shape) > 0.002
+    b = np.ones(shape, bool)
+    if kind == "ends":  # slice 0: a zero at k = 0 of each axis-0 row; 1: k = n-1; 2: both
+        b[0, :, 0::2] = False
+        b[-1, :, 1:] = False
+    else:  # one_zero: one background voxel in each z-slice
+        for z in range(shape[-1]):
+            b[rng.integers(shape[0]), rng.integers(shape[1]), z] = False
+    return b
+
+
+def _ulps(got, want):
+    """The largest distance in float32 steps between two non-negative
+    float32 tensors."""
+    return int((got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max())
 
 
 @pytest.mark.parametrize("case", range(len(EDT_CASES)))
 def test_edt_pass_equals_plain_exactly(cuda, case):
-    shape, axes = EDT_CASES[case]
+    shape, axes, kind, ulps = EDT_CASES[case]
     rng = np.random.default_rng(case)
-    b = torch.from_numpy(rng.random(shape) > 0.3).to(cuda)
+    b = torch.from_numpy(_edt_mask(kind, shape, rng)).to(cuda)
     n_axes = len(shape) if axes is None else len(axes)
     before = EDT_PASS.launches
     got = edt(b, axes=axes)
@@ -201,7 +244,43 @@ def test_edt_pass_equals_plain_exactly(cuda, case):
     assert EDT_PASS.launches == before + n_axes
     want = edt_plain(b, axes=axes)
     assert got.shape == want.shape and got.dtype == torch.float32
-    assert torch.equal(got, want), float((got - want).abs().max())
+    if ulps == 0:
+        assert torch.equal(got, want), float((got - want).abs().max())
+    else:
+        assert _ulps(got, want) <= ulps
+
+
+def _check_axis_pass(d, ulps):
+    """K2's pass on each axis of ``d`` against the plain pass: one launch
+    per axis, within ``ulps`` float32 steps (0: equal bits)."""
+    for axis in range(d.ndim):
+        before = EDT_PASS.launches
+        got = edt_axis_pass(d, axis)
+        torch.cuda.synchronize()
+        assert EDT_PASS.launches == before + 1
+        want = _axis_pass_plain(d, axis)
+        if ulps == 0:
+            assert torch.equal(got, want), (axis, float((got - want).abs().max()))
+        else:
+            assert _ulps(got, want) <= ulps, axis
+
+
+def test_edt_axis_pass_integer_values_equal_plain_exactly(cuda):
+    """Integer-valued d below 2^24 (the sums of squares the second pass
+    sees) with float32(1e12) mixed in: equal bits."""
+    rng = np.random.default_rng(7)
+    d = rng.integers(0, 2**24, (310, 47, 3)).astype(np.float32)
+    d[rng.random(d.shape) < 0.4] = 1e12
+    _check_axis_pass(torch.from_numpy(d).to(cuda), 0)
+
+
+def test_edt_axis_pass_real_values_within_one_ulp(cuda):
+    """Non-integer float32 d, uniform in [0, 1000) and spread over 37
+    decades: the stated 1-ulp tolerance (0 measured)."""
+    rng = np.random.default_rng(8)
+    d = (rng.random((290, 33, 2)) * 1000).astype(np.float32)
+    d[..., 1] = 10.0 ** rng.uniform(-30, 7, d.shape[:2])
+    _check_axis_pass(torch.from_numpy(d).to(cuda), 1)
 
 
 def test_edt_all_foreground_slice_is_1e6(cuda):
