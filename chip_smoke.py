@@ -8,11 +8,12 @@ toolkit::
     python3 chip_smoke.py --phases k1     # build K1 and run phase 3 alone
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
-``slice1`` (5), ``k2`` (6), ``slice2`` (7), ``blobs`` (8) and ``slice3``
-(9); phases 1, 2 (only the kernels the chosen phases launch) and 10 always
-run.  A run of fewer than all phases reports no launch counts (they are the
-whole main path's) and ends with ``{"partial": true, "phases": [...], ...}``
-instead of the result line.  Phases (any failure exits non-zero):
+``slice1`` (5), ``k2`` (6), ``slice2`` (7), ``blobs`` (8), ``train`` (9)
+and ``slice3`` (10); phases 1, 2 (only the kernels the chosen phases
+launch) and 11 always run.  A run of fewer than all phases reports no
+launch counts (they are the whole main path's) and ends with
+``{"partial": true, "phases": [...], ...}`` instead of the result line.
+Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
 2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
@@ -55,7 +56,21 @@ instead of the result line.  Phases (any failure exits non-zero):
 8. the instance stage on a synthetic blob scene of one full tile: labels
    with K2 equal to labels with the plain EDT, and >= 90 % of the seeded
    blobs found;
-9. slice 3's path, ``analyze`` on the JAX bench's pipeline scene (1536 x
+9. training (slice 8's path): the JAX bench's fit
+   (``hcunet_tpu/benchmarks.py:342-423``) through ``UNetTrainer`` at the
+   full width of ``UNetConfig.production_3d()`` in bfloat16 (weights from
+   the seed): 40 steps of Adam(3e-3) with ``cross_entropy(method="pixel")``
+   on the 256^2 x 12 crop of the pipeline scene, each step launching K1 15
+   times in the forward (14 on the ring path) and 14 times for the input
+   gradient (13 on the ring path; none for the first layer), the loss
+   falling; 3 steps with K1 against 3 with the plain conv, in float32 and
+   in bfloat16, parameters and batch statistics within the tolerances of
+   ``trajectory_gap``; K1's input gradient against its plain version at
+   the fit's 14 layer shapes in bfloat16 and float32, timed beside cuDNN's
+   dgrad and the bound; and the fitted weights through ``trainer.save`` and
+   ``Segmenter.from_checkpoint``, whose prediction on the 1152^2 x 15
+   request must equal that of a ``Segmenter`` on ``trainer.variables``;
+10. slice 3's path, ``analyze`` on the JAX bench's pipeline scene (1536 x
    1536 x 12, uint16, 160 blob cells; ``numchunks=3``, the auto tile
    geometry, the uint16 transfer, the ``"fused"`` host flood): a warm-up
    of the device stages on one chunk, a timed run (K1 15 launches per tile
@@ -63,15 +78,20 @@ instead of the result line.  Phases (any failure exits non-zero):
    (K1 0 launches, the same cells), a float32-transfer run without overlap
    under ``torch.profiler`` whose mask the uint16 run's must match within
    one half quantum, and the ``"fused"`` and ``"materialized"`` backends on
-   one chunk's map, which must give equal labels;
-10. print one JSON line of kernel rows (``launches``: the main path's
-    count, slices 1-3), the card line, and the result line.
+   one chunk's map, which must give equal labels; on the fitted weights
+   of phase 9 where it ran (as the JAX bench does), else on the random
+   ones;
+11. print one JSON line of kernel rows (``launches``: the count over the
+    paths, slices 1-3 and training, with ``launches_by_path`` beside it;
+    K1's input-gradient rows count the training path's input-gradient
+    launches), the card line, and the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -120,6 +140,12 @@ LAYER_NAMES = (
     + [f"up{i}.conv{j}" for i in range(3) for j in (1, 2)]
     + ["out_conv"]
 )
+# the JAX bench's fit (hcunet_tpu/benchmarks.py:342-423): the 256^2 crop of
+# the pipeline scene, 40 Adam steps at 3e-3; and the steps of the parity runs
+FIT_CROP = 256
+FIT_STEPS = 40
+FIT_LR = 3e-3
+PARITY_STEPS = 3
 
 
 def card_line() -> str:
@@ -1063,6 +1089,370 @@ def slice2_phase(model, dev, kernels) -> dict:
     return counts
 
 
+def fit_batch():
+    """The JAX bench's fit input: the 256^2 crop of the pipeline scene,
+    normalized ``(v - 0.5) / 0.5`` after the integer unit scale, and the
+    target ``truth > 0.3``."""
+    vol, truth = pipeline_scene(*PIPELINE_SCENE, PIPELINE_CELLS, seed=SEED)
+    volf = vol[:FIT_CROP, :FIT_CROP].astype(np.float32) / np.float32(65536.0)
+    x = ((volf - np.float32(0.5)) / np.float32(0.5))[None]
+    y = (truth[:FIT_CROP, :FIT_CROP] > 0.3)[None, ..., None].astype(np.float32)
+    return x, y
+
+
+def layer_weight_shapes(cfg) -> list:
+    """(Cin, Cout) of the dense weight of each of the 15 valid convs, in
+    ``LAYER_NAMES``' order."""
+    feats = cfg.feature_sizes
+    cins = (cfg.in_channels,) + tuple(feats[:-1])
+    shapes = [s for cin, f in zip(cins, feats) for s in ((cin, f), (f, f))]
+    shapes += [s for f in reversed(feats[:-1]) for s in ((2 * f, f), (f, f))]
+    return shapes + [(feats[0], cfg.out_channels)]
+
+
+# the relative size of the jitter of the reference runs: a few float32
+# ulps, the order of the gap two summation orders of one conv open
+JITTER = 2.0**-22
+
+
+@contextlib.contextmanager
+def plain_conv(jitter=None):
+    """The U-Net's valid convs on the plain version, their gradient by plain
+    autograd (cuDNN), for the parity runs: no K1 launch.  ``jitter``: a
+    ``torch.Generator`` on the card; each conv's float32 sum is then
+    multiplied by ``1 + JITTER u`` (u uniform in [-1, 1], per element)
+    before the cast to the working dtype, as another summation order would
+    move it."""
+    import hcunet_tpu_torch.ops.conv as conv_mod
+
+    kernel = conv_mod.conv3d_valid
+
+    def plain(x, w, b=None, relu=False, dilation=1):
+        if jitter is None:
+            return conv_mod.conv3d_valid_plain(x, w, b, relu, dilation)
+        y = conv_mod.conv3d_valid_plain(x.float(), w.float(), b, relu, dilation)
+        u = torch.rand(y.shape, generator=jitter, device=y.device) * 2 - 1
+        return (y * (1 + JITTER * u)).to(x.dtype)
+
+    conv_mod.conv3d_valid = plain
+    try:
+        yield
+    finally:
+        conv_mod.conv3d_valid = kernel
+
+
+@contextlib.contextmanager
+def recording_input_grad(records):
+    """Record ``(gy shape, w, dilation)`` of every input-gradient call while
+    it runs as usual (through K1 on the card)."""
+    import hcunet_tpu_torch.ops.conv as conv_mod
+
+    kernel = conv_mod.conv3d_valid_input_grad
+
+    def record(gy, w, dilation=1):
+        records.append((tuple(gy.shape), w.detach().clone(), dilation))
+        return kernel(gy, w, dilation)
+
+    conv_mod.conv3d_valid_input_grad = record
+    try:
+        yield
+    finally:
+        conv_mod.conv3d_valid_input_grad = kernel
+
+
+# jittered plain runs, each from its own seed, that set the parity limits
+N_JITTER = 3
+# the kernel run may part from the plain run by this many times the largest
+# gap that the jittered plain runs open, plus a floor per dtype, for each
+# kind of gap: the losses' (relative), the step-1 gradients' (per tensor,
+# the norm of the difference over the norm), the share of a parameter
+# tensor's elements more than 0.1 lr apart, and the running statistics'
+# (relative to their scale), each the largest over the tensors
+# (hcunet_tpu_torch/train/parity.py).  In float32 K1's summation order
+# differs from cuDNN's by more than the jitter's few ulps (the kernel's gaps
+# were 1.3-2.6x one jittered run's), so 4x; in bf16 the cast of each
+# conv's output to bf16 sets both (the kernel's gaps 0.56-2.5x), so 2x.
+# bf16 holds no share: one jittered run already puts ~31 % of a tensor's
+# elements 0.1 lr apart after 3 steps, so no limit below 1 separates a
+# kernel from rounding there.
+JITTER_FACTOR = {torch.float32: 4.0, torch.bfloat16: 2.0}
+GAP_FLOOR = {torch.float32: {"loss": 1e-6, "grad": 1e-5, "share": 1e-3, "stats": 1e-5},
+             torch.bfloat16: {"loss": 1e-3, "grad": 1e-3, "stats": 1e-3}}
+
+
+def run_gaps(run_a, run_b, start) -> dict:
+    """``{kind: (largest gap, tensor)}`` between two runs of
+    ``PARITY_STEPS`` steps from the variables ``start`` (``run_*``: the
+    variables after the steps, the losses, the step-1 gradients, as JAX
+    trees), by ``hcunet_tpu_torch.train.parity``'s rule, which raises where
+    a parameter did not move, is not finite, or the two runs part by more
+    than Adam's step bound."""
+    from hcunet_tpu_torch.train.parity import gradient_gaps, trajectory_gaps
+
+    var_a, losses_a, g_a = run_a
+    var_b, losses_b, g_b = run_b
+    out = {"loss": (max(abs(a - b) / abs(b) for a, b in zip(losses_a, losses_b)), None)}
+    per = {("grad", p): v for p, v in gradient_gaps(g_a, g_b).items()}
+    per.update(trajectory_gaps(var_a, var_b, start, FIT_LR, PARITY_STEPS))
+    for (kind, path), v in per.items():
+        if v >= out.get(kind, (-1.0, None))[0]:
+            out[kind] = (v, "/".join(path))
+    return out
+
+
+def trajectory_gap(kernel, plain, jittered, start, dtype) -> str:
+    """The kernel run against the plain run, held by the gaps that
+    rounding-sized jitters of the plain run's convs open (``run_gaps`` of
+    each jittered run against the plain one): for each kind of gap, the
+    largest over the tensors within ``JITTER_FACTOR`` times the largest of
+    the jittered runs' plus ``GAP_FLOOR``.
+
+    Why relative to the jitter: at production width the step-1 gradients
+    of the deep layers are sums of many terms that nearly cancel, so a
+    rounding difference in any conv moves them by far more than the
+    dtype's epsilon, and Adam divides each step by the root of the squared
+    gradient's average, so a parameter whose gradient is near 0 can move a
+    whole step of lr apart in two runs.  The tight gate on K1 is the input
+    gradient's check at each layer (``check_input_grad``)."""
+    got = run_gaps(kernel, plain, start)
+    noise = [run_gaps(j, plain, start) for j in jittered]
+    factor, floor = JITTER_FACTOR[dtype], GAP_FLOOR[dtype]
+    parts, bad = [], []
+    for kind in floor:
+        g, where = got[kind]
+        n = max(r[kind][0] for r in noise)
+        allowed = factor * n + floor[kind]
+        parts.append(f"{kind} gap at most {g:.2e}{f' ({where})' if where else ''}, jittered runs "
+                     f"{', '.join(f'{r[kind][0]:.2e}' for r in noise)}, allowed {allowed:.2e}")
+        if g > allowed:
+            bad.append(kind)
+    line = "; ".join(parts)
+    if bad:
+        raise AssertionError(f"{line}; parted: {bad}")
+    return line
+
+
+def check_input_grad(name, gy, w, dilation) -> dict:
+    """K1's input gradient against its plain version on one output gradient
+    ``gy`` (``w`` in its dtype); returns a row."""
+    from hcunet_tpu_torch.ops.conv import (
+        CONV3D_VALID_INPUT_GRAD,
+        conv3d_valid_input_grad,
+        conv3d_valid_input_grad_plain,
+        conv3d_valid_route,
+    )
+
+    dtype = gy.dtype
+    kx, ky, kz, cin, cout = w.shape
+    k1_route = conv3d_valid_route(dtype, cout, cin)
+    before = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+    got = conv3d_valid_input_grad(gy, w, dilation)
+    taken = [r for r, n in CONV3D_VALID_INPUT_GRAD.route_launches.items() if n != before[r]]
+    if taken != [k1_route]:
+        raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
+    want = conv3d_valid_input_grad_plain(gy, w, dilation)
+    torch.cuda.synchronize()
+    err, tol = kernel_error(got, want)
+    in_size = (gy.shape[0], cin, *got.shape[1:4])
+    del got, want
+
+    gy_cf = gy.permute(0, 4, 1, 2, 3)
+    w_cf = w.permute(4, 3, 0, 1, 2)
+    kernel_ms = cuda_ms(lambda: conv3d_valid_input_grad(gy, w, dilation))
+    plain_ms = cuda_ms(lambda: conv3d_valid_input_grad_plain(gy, w, dilation))
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(in_size, w_cf, gy_cf, dilation=dilation))
+    out_vox = gy.numel() // cout
+    es = gy.element_size()
+    flops = 2.0 * out_vox * kx * ky * kz * cin * cout
+    nbytes = (gy.numel() + w.numel() + math.prod(in_size)) * es
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    row = {
+        "name": f"conv3d_valid_input_grad[{name},{dt}]",
+        "route": "cuda",
+        "k1_route": k1_route,
+        "source": "hcunet_tpu_torch/csrc/conv3d_valid.cu",
+        "replaces": "hcunet_tpu/ops/conv.py:90 (XLA's input gradient of lax.conv_general_dilated; no Pallas kernel)",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+    print(
+        f"  {row['name']:44s} {k1_route:5s} gy{list(gy.shape)} w{list(w.shape)} err {err:.3e} "
+        f"(tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
+        f"cudnn dgrad {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms "
+        f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
+        flush=True,
+    )
+    if not err <= tol:
+        raise AssertionError(f"{row['name']}: max error {err} > tolerance {tol}")
+    return row
+
+
+def make_trainer(model, dev):
+    from hcunet_tpu_torch.train.trainer import TrainConfig, UNetTrainer
+
+    return UNetTrainer(
+        model, cfg=TrainConfig(learning_rate=FIT_LR, loss_method="pixel", log_every=0), device=dev
+    )
+
+
+def train_fit(dev, x, y):
+    """The fit: 40 bf16 steps, each checked for 15 forward and 14
+    input-gradient launches of K1 on their paths.  Returns the trainer,
+    the launch counts of the whole fit and the input gradients recorded
+    at its first step."""
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.models.unet import init_unet
+    from hcunet_tpu_torch.ops.conv import CONV3D_VALID, CONV3D_VALID_INPUT_GRAD
+
+    cfg = UNetConfig.production_3d()
+    model = init_unet(cfg, torch.Generator().manual_seed(SEED), dtype=torch.bfloat16)
+    trainer = make_trainer(model, dev)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    fwd_want = {"basic": 1, "ring": 14}   # the 4-channel first conv on the basic path
+    grad_want = {"basic": 1, "ring": 13}  # out_conv's (Cin' = 1) on the basic path
+    records, losses, secs = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts([CONV3D_VALID, CONV3D_VALID_INPUT_GRAD])
+    for step in range(FIT_STEPS):
+        fwd0 = dict(CONV3D_VALID.route_launches)
+        grad0 = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+        t0 = time.perf_counter()
+        if step == 0:
+            with recording_input_grad(records):
+                losses.append(trainer.train_step(xt, yt, None))
+        else:
+            losses.append(trainer.train_step(xt, yt, None))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        fwd = {r: n - fwd0[r] for r, n in CONV3D_VALID.route_launches.items()}
+        grad = {r: n - grad0[r] for r, n in CONV3D_VALID_INPUT_GRAD.route_launches.items()}
+        if fwd != fwd_want or grad != grad_want:
+            raise AssertionError(f"step {step}: K1 forward {fwd} (expected {fwd_want}), "
+                                 f"input gradient {grad} (expected {grad_want})")
+    counts = {"forward": CONV3D_VALID.launches, "input_grad": CONV3D_VALID_INPUT_GRAD.launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(secs[1:])) * 1e3
+    print(
+        f"fit (production_3d, bf16, input {list(x.shape)}, {FIT_STEPS} Adam({FIT_LR}) steps, "
+        f"pixel BCE): loss {losses[0]:.6f} -> {losses[-1]:.6f}; {step_ms:.3f} ms a step (median of "
+        f"steps 2-{FIT_STEPS}; step 1 {secs[0] * 1e3:.1f} ms); peak device memory {peak / 2**30:.2f} "
+        f"GiB; K1 launches: forward {counts['forward']} ({CONV3D_VALID.route_launches}), input "
+        f"gradient {counts['input_grad']} ({CONV3D_VALID_INPUT_GRAD.route_launches}); losses "
+        f"{[round(v, 5) for v in losses]}",
+        flush=True,
+    )
+    if counts != {"forward": 15 * FIT_STEPS, "input_grad": 14 * FIT_STEPS}:
+        raise AssertionError(f"the fit launched K1 {counts}")
+    if not losses[-1] < losses[0] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the fit's loss did not fall: {losses[0]} -> {losses[-1]}")
+    return trainer, counts, records
+
+
+def train_parity(dev, x, y, dtype) -> None:
+    """3 steps with K1 against 3 with the plain conv from the same weights,
+    held by ``trajectory_gap`` to the gaps of ``N_JITTER`` runs on the
+    plain conv with their conv outputs jittered by a few ulps."""
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.models.unet import UNet, init_unet
+    from hcunet_tpu_torch.ops.conv import CONV3D_VALID, CONV3D_VALID_INPUT_GRAD
+    from hcunet_tpu_torch.utils.port_jax import jax_variables_from_unet_state_dict
+
+    cfg = UNetConfig.production_3d()
+    sd0 = init_unet(cfg, torch.Generator().manual_seed(SEED + 1)).state_dict()
+    start = jax_variables_from_unet_state_dict(sd0, cfg)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    runs = {"kernel": contextlib.nullcontext(), "plain": plain_conv()}
+    runs.update({f"jittered{i}": plain_conv(torch.Generator(device=dev).manual_seed(SEED + i))
+                 for i in range(N_JITTER)})
+    for label, ctx in runs.items():
+        model = UNet(cfg, dtype=dtype)
+        model.load_state_dict(sd0)
+        trainer = make_trainer(model, dev)
+        before = (CONV3D_VALID.launches, CONV3D_VALID_INPUT_GRAD.launches)
+        with ctx:
+            losses = [trainer.train_step(xt, yt, None)]
+            grads = jax_variables_from_unet_state_dict(
+                {n: p.grad for n, p in model.named_parameters()}, cfg)["params"]
+            losses += [trainer.train_step(xt, yt, None) for _ in range(PARITY_STEPS - 1)]
+        launched = (CONV3D_VALID.launches - before[0], CONV3D_VALID_INPUT_GRAD.launches - before[1])
+        want = (15 * PARITY_STEPS, 14 * PARITY_STEPS) if label == "kernel" else (0, 0)
+        if launched != want:
+            raise AssertionError(f"{label} run launched K1 {launched}, expected {want}")
+        runs[label] = (trainer.variables, losses, grads)
+        del trainer, model
+        torch.cuda.empty_cache()
+    jittered = [runs[f"jittered{i}"] for i in range(N_JITTER)]
+    line = trajectory_gap(runs["kernel"], runs["plain"], jittered, start, dtype)
+    print(f"train parity, {dtype}, {PARITY_STEPS} steps, K1 vs the plain conv: losses "
+          + " vs ".join(str([round(v, 6) for v in r[1]]) for r in runs.values())
+          + f" ({', '.join(runs)}); {line}", flush=True)
+
+
+def train_phase(dev) -> tuple:
+    """Phase 9: the fit, the parity runs, K1's input gradient layer by
+    layer and the checkpoint round trip.  Returns the fitted model (eval
+    mode), the fit's K1 counts and the input-gradient rows."""
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.infer.serving import Segmenter
+
+    x, y = fit_batch()
+    trainer, counts, records = train_fit(dev, x, y)
+    for dtype in (torch.float32, torch.bfloat16):
+        train_parity(dev, x, y, dtype)
+
+    # K1's input gradient at the fit's 14 layers; autograd runs them from
+    # out_conv back to down0.conv2 (down0.conv1's input needs none)
+    names = list(reversed(LAYER_NAMES))[:14]
+    shapes = list(reversed(layer_weight_shapes(UNetConfig.production_3d())))[:14]
+    got_shapes = [(w.shape[3], w.shape[4]) for _s, w, _d in records]
+    if got_shapes != shapes:
+        raise AssertionError(f"recorded input gradients {got_shapes}, expected {shapes}")
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"K1 input gradient vs plain, {dtype}:")
+        for name, (gy_shape, w, dil) in zip(names, records):
+            gy = torch.randn(gy_shape, generator=gen_dev, device=dev).to(dtype)
+            rows.append(check_input_grad(name, gy, w.to(dtype).contiguous(), dil))
+            del gy
+            torch.cuda.empty_cache()
+    for dt in ("bf16", "f32"):
+        sel = [r for r in rows if r["name"].endswith(f",{dt}]")]
+        ms, lib, bound, plain = (sum(r[k] for r in sel) for k in ("ms", "library_ms", "bound_ms", "plain_ms"))
+        print(f"K1 input gradient {dt}, 14 layers: kernel {ms:.3f} ms, cuDNN dgrad {lib:.3f} ms "
+              f"(kernel/cuDNN {ms / lib:.3f}), plain {plain:.3f} ms, bound {bound:.3f} ms "
+              f"(kernel at {100 * bound / ms:.1f}% of it)", flush=True)
+
+    # the fitted weights through the checkpoint format into a Segmenter
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        path = os.path.join(root, "fit.hcunet")
+        trainer.save(path)
+        vol = np.random.default_rng(SEED).random((*REQUESTS[0], 4), dtype=np.float32)
+        from_ckpt = Segmenter.from_checkpoint(path, dtype=torch.bfloat16, device=dev)
+        direct = Segmenter(trainer.model, trainer.variables, dtype=torch.bfloat16, device=dev)
+        a, b = from_ckpt.predict(vol), direct.predict(vol)
+        equal = bool(np.array_equal(a, b))
+        print(f"checkpoint round trip ({os.path.getsize(path)} bytes): Segmenter.from_checkpoint "
+              f"predict on {REQUESTS[0]} equal to a Segmenter on trainer.variables: {equal}; "
+              f"p in [{a.min():.4f}, {a.max():.4f}], mean {a.mean():.4f}", flush=True)
+        if not equal:
+            raise AssertionError("the checkpoint round trip changed the prediction")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    return trainer.model.eval(), counts, rows
+
+
 # phases that --phases can pick, in the order they run, and the kernels
 # each launches
 PHASES = {
@@ -1072,6 +1462,7 @@ PHASES = {
     "k2": ("K2",),
     "slice2": ("K1", "K2"),
     "blobs": ("K2",),
+    "train": ("K1",),
     "slice3": ("K1", "K2", "host"),
 }
 
@@ -1185,28 +1576,44 @@ def main(argv=None) -> int:
         check_instance_stage(dev)
         torch.cuda.empty_cache()
         marks.append(("instance blobs", time.perf_counter()))
-    # phase 9: slice 3's path, analyze on the pipeline scene
+    # phase 9: training, and the fitted weights for slice 3
+    grad_rows = []
+    train_counts = {"forward": 0, "input_grad": 0}
+    if "train" in phases:
+        model, train_counts, grad_rows = train_phase(dev)
+        torch.cuda.empty_cache()
+        marks.append(("train", time.perf_counter()))
+    # phase 10: slice 3's path, analyze on the pipeline scene
     if "slice3" in phases:
         counts3 = analyze_phase(model, dev, kernels)
         marks.append(("slice 3", time.perf_counter()))
 
-    # phase 10: results.  A kernel's launches are those of the whole main
-    # path (slices 1-3): a run of fewer phases gives none, and ends with a
-    # line that says which phases ran in place of the result line.
+    # phase 11: results.  A kernel's launches are those of the whole main
+    # path (slices 1-3 and training): a run of fewer phases gives none, and
+    # ends with a line that says which phases ran in place of the result
+    # line.
     full = phases == list(PHASES)
     for kernel_rows, name in ((rows, "K1"), (k2_rows, "K2"), (k3_rows, "K3")):
-        slice1 = total if name == "K1" else 0
+        by_path = {"slice1": total if name == "K1" else 0, "slice2": counts[name],
+                   "slice3": counts3[name],
+                   "train": train_counts["forward"] if name == "K1" else 0}
         for row in kernel_rows:
-            row["launches"] = slice1 + counts[name] + counts3[name] if full else None
+            row["launches"] = sum(by_path.values()) if full else None
+            row["launches_by_path"] = by_path if full else None
+    for row in grad_rows:
+        row["launches"] = train_counts["input_grad"] if full else None
+        row["launches_by_path"] = {"train": train_counts["input_grad"]} if full else None
     paths = {"slice1": f"slice 1 {total} K1",
              "slice2": f"slice 2 {counts['K1']} K1, {counts['K2']} K2 and {counts['K3']} K3",
+             "train": f"training {train_counts['forward']} K1 forward and "
+                      f"{train_counts['input_grad']} K1 input-gradient",
              "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "
         + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:]))
     )
-    rows += k2_rows + k3_rows
+    rows += grad_rows + k2_rows + k3_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     device = {

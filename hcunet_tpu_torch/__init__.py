@@ -7,6 +7,8 @@ neither it nor JAX.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
+__version__ = "0.1.0"
+
 from hcunet_tpu_torch.config import (
     DetectorConfig,
     PipelineConfig,
@@ -19,5 +21,5 @@ from hcunet_tpu_torch.infer.pipeline import AnalyzeResult, analyze
 
 __all__ = [
     "AnalyzeResult", "DetectorConfig", "PipelineConfig", "TileConfig", "UNetConfig",
-    "WatershedConfig", "analyze", "auto_tile_config",
+    "WatershedConfig", "__version__", "analyze", "auto_tile_config",
 ]

@@ -9,6 +9,8 @@ caller names another device, and an error when CUDA is absent.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -186,6 +188,63 @@ class PipelineConfig:
     tiles: TileConfig = field(default_factory=TileConfig)
     watershed: WatershedConfig = field(default_factory=WatershedConfig)
     detector: DetectorConfig = field(default_factory=DetectorConfig)
+
+
+# ---------------------------------------------------------------------------
+# (De)serialization: configs stored in checkpoints as JSON, in the JAX
+# package's format (``hcunet_tpu/config.py:348,372``), so that a config.json
+# written by either package loads in the other
+# ---------------------------------------------------------------------------
+
+_CONFIG_TYPES = {
+    "UNetConfig": UNetConfig,
+    "DetectorConfig": DetectorConfig,
+    "TileConfig": TileConfig,
+    "WatershedConfig": WatershedConfig,
+    "PipelineConfig": PipelineConfig,
+}
+# the JAX package's configs of model families the port has not ported yet
+_NOT_PORTED = {"RUNetConfig": "RecursiveUNet", "RDCNetConfig": "RDCNet"}
+
+
+def config_to_dict(cfg) -> Dict:
+    """A config as a JSON-ready dict, tagged with its type's name."""
+    d = dataclasses.asdict(cfg)
+    d["__type__"] = type(cfg).__name__
+    return d
+
+
+def _config_type(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: the {_NOT_PORTED[name]} family is not ported yet"
+        )
+    if name not in _CONFIG_TYPES:
+        raise ValueError(f"unknown config type {name!r}")
+    return _CONFIG_TYPES[name]
+
+
+def _rebuild(cls, d: Dict):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if isinstance(v, dict):
+            v = _rebuild(_config_type(v.get("__type__", f.type.replace('"', ""))), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def config_from_dict(d: Dict):
+    """Inverse of :func:`config_to_dict`; raises ``NotImplementedError`` for
+    a config type of a family the port has not ported."""
+    if "__type__" not in d:
+        raise ValueError("missing __type__ tag")
+    d = json.loads(json.dumps(d))  # a deep copy; lists become tuples below
+    return _rebuild(_config_type(d["__type__"]), d)
 
 
 # ---------------------------------------------------------------------------

@@ -139,21 +139,35 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-class CudaKernel:
-    """One kernel library: built and loaded at first use, with a launch count.
+class LaunchCount:
+    """The launches of one wrapper of a kernel: ``launches`` is a plain
+    integer that the wrapper raises by one each time it launches the kernel,
+    so a run can show which path it took, and ``route_launches`` counts them
+    by the path the kernel's C entry point picks, where it picks one."""
+
+    def __init__(self, routes: tuple = ()):
+        self.launches = 0
+        self.route_launches = dict.fromkeys(routes, 0)
+
+    def add(self, route: str) -> None:
+        """One launch, on the path ``route``."""
+        self.launches += 1
+        self.route_launches[route] += 1
+
+
+class CudaKernel(LaunchCount):
+    """One kernel library: built and loaded at first use, with the launch
+    count of its main wrapper.
 
     ``source`` names a file in ``csrc/``; an absolute path builds a source
-    from elsewhere (another commit's copy, say) the same way.
-    ``launches`` is a plain integer that the wrapper raises by one each time
-    it launches the kernel, so a run can show which path it took."""
+    from elsewhere (another commit's copy, say) the same way.  A second
+    wrapper of the same kernel keeps its own :class:`LaunchCount`."""
 
     def __init__(self, source: str, symbol: str, argtypes: list, routes: tuple = ()):
+        super().__init__(routes)
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
-        # launches by path, for a kernel whose C entry point picks one
-        self.route_launches = dict.fromkeys(routes, 0)
         self.build_seconds = 0.0
         self._fn = None
 

@@ -81,10 +81,12 @@ class Segmenter:
 
     @classmethod
     def from_checkpoint(cls, path: str, dtype=None, **kwargs) -> "Segmenter":
-        raise NotImplementedError(
-            "the checkpoint format is not ported yet; build the UNet and pass "
-            "its weights to Segmenter"
-        )
+        """A Segmenter on a checkpoint of either package
+        (:func:`~hcunet_tpu_torch.utils.checkpoint.load_unet`)."""
+        from hcunet_tpu_torch.utils.checkpoint import load_unet
+
+        model, variables, _ = load_unet(path)
+        return cls(model, variables, dtype=dtype, **kwargs)
 
     # -- shape bucketing ------------------------------------------------------
 

@@ -5,10 +5,13 @@ The parameters live in the reference ``Unet_Constructor``'s torch modules and
 names (``down_steps.{i}.conv1/batch1/conv2/batch2``,
 ``up_steps.{i}.up_conv/...``, ``out_conv``), so a reference state dict loads
 as it is and ``hcunet_tpu.utils.port_torch`` reads this module's state dict.
-The forward is the plain eval forward of the JAX ``UNet.apply(train=False)``:
-channels-last ``[B, *spatial, C]``, conv → inference BN → ReLU twice per
-block, max pool down, transpose conv up, top-left crops at the skip joins and
-a 1×1 output conv, computed in ``dtype`` and returned as float32 logits.
+The forward is the JAX ``UNet.apply``: channels-last ``[B, *spatial, C]``,
+conv → BN → ReLU twice per block, max pool down, transpose conv up, top-left
+crops at the skip joins and a 1×1 output conv, computed in ``dtype`` and
+returned as float32 logits.  ``self.training`` is the JAX ``train=`` flag:
+in training mode batch norm uses the batch's statistics and writes the new
+running statistics into its buffers, as flax's ``mutable=["batch_stats"]``
+returns them; in eval mode it uses the running statistics.
 ``reference_skip_bug=True`` joins a copy of the upsampled tensor instead of
 the skip, as the reference does (``hcat/unet.py:313``).
 """
@@ -25,6 +28,7 @@ from hcunet_tpu_torch.config import UNetConfig
 from hcunet_tpu_torch.core.shapes import unet_output_shape
 from hcunet_tpu_torch.ops.conv import (
     batch_norm_inference,
+    batch_norm_train,
     conv_transpose_torch,
     conv_valid,
     max_pool,
@@ -60,11 +64,19 @@ def _bn(nd: int, c: int):
     return (nn.BatchNorm3d if nd == 3 else nn.BatchNorm2d)(c, eps=1e-5)
 
 
+# flax nn.BatchNorm(momentum=0.9) in hcunet_tpu/models/unet.py: the running
+# statistics keep 0.9 of their value and take 0.1 of the batch's
+BN_MOMENTUM = 0.9
+
+
 class ConvBNRelu(nn.Module):
-    """One conv → inference batch norm → ReLU step.
+    """One conv → batch norm → ReLU step.
 
     It holds no parameters: the conv and BN it applies belong to the
-    enclosing block under the reference's names (``conv1``/``batch1``...)."""
+    enclosing block under the reference's names (``conv1``/``batch1``...).
+    In training mode the batch norm is :func:`batch_norm_train` and the BN
+    module's running statistics take the batch's (biased) statistics with
+    momentum 0.9, as flax's ``nn.BatchNorm`` does."""
 
     def __init__(self, dilation: int = 1, groups: int = 1):
         super().__init__()
@@ -80,9 +92,15 @@ class ConvBNRelu(nn.Module):
             groups=self.groups,
             accum_dtype=dtype,
         )
-        x = batch_norm_inference(
-            x.to(dtype), bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
-        )
+        if self.training:
+            x, mean, var = batch_norm_train(x.to(dtype), bn.weight, bn.bias, bn.eps)
+            with torch.no_grad():
+                for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
+                    buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * new)
+        else:
+            x = batch_norm_inference(
+                x.to(dtype), bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
+            )
         return torch.relu(x).to(dtype)
 
 

@@ -11,8 +11,15 @@ implicit GEMM with the bias and ReLU in its epilogue.  It has two paths
 with ``Cin % 8 == 0``, and a basic one for the rest.  :func:`conv3d_valid`
 launches it for a CUDA tensor and raises if it cannot; only a tensor on the
 CPU takes :func:`conv3d_valid_plain`, the same function in plain PyTorch.
+
+A conv that needs a gradient runs through :class:`Conv3dValidFunction`:
+K1 in the forward, K1 again for the input gradient
+(:func:`conv3d_valid_input_grad`, a valid conv of the padded output
+gradient with the flipped kernel), and plain PyTorch (cuDNN's wgrad on
+CUDA) for the weight gradient, which the JAX package also left to XLA.
 Transpose convs and pooling are plain PyTorch, as the JAX package left them
-to XLA.
+to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's
+semantics.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from hcunet_tpu_torch.csrc import CudaKernel, aligned16
+from hcunet_tpu_torch.csrc import CudaKernel, LaunchCount, aligned16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -38,6 +45,10 @@ CONV3D_VALID = CudaKernel(
     [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
     routes=CONV3D_ROUTES,
 )
+
+# K1 launched for the input gradient of a conv (conv3d_valid_input_grad),
+# counted apart from CONV3D_VALID's forward launches
+CONV3D_VALID_INPUT_GRAD = LaunchCount(CONV3D_ROUTES)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,9 +114,33 @@ def conv3d_valid(
     ``x`` or ``w`` that does not start on a 16-byte boundary (a view at an
     odd element offset) is first copied once into a fresh, aligned
     allocation; the basic path takes any contiguous input as it is.
+
+    With grad mode on and an input that requires grad, the call runs through
+    :class:`Conv3dValidFunction`, which takes no ``bias`` and no ``relu``
+    (what :func:`conv_valid` passes); with either it raises, so that no
+    output ever comes back without its gradient.
     """
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, bias)
+    ):
+        if bias is not None or relu:
+            raise ValueError(
+                "conv3d_valid: the gradient path takes no bias and no relu; "
+                "run the serving path under torch.no_grad()"
+            )
+        return Conv3dValidFunction.apply(x, w, _tuple(dilation, 3))
     if x.device.type == "cpu":
         return conv3d_valid_plain(x, w, bias, relu, dilation)
+    y, route = _k1_launch(x, w, bias, relu, _tuple(dilation, 3))
+    if route is not None:
+        CONV3D_VALID.add(route)
+    return y
+
+
+def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
+    """Check K1's inputs and launch it; returns the output and the path
+    (None when the batch is empty and nothing launched).  The callers count
+    the launch."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_valid: no kernel for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
@@ -120,7 +155,6 @@ def conv3d_valid(
         )
     B, X, Y, Z, cin = x.shape
     kx, ky, kz, _, cout = w.shape
-    dil = _tuple(dilation, 3)
     out_sp = [s - d * (k - 1) for s, d, k in zip((X, Y, Z), dil, (kx, ky, kz))]
     if min(out_sp) <= 0:
         raise ValueError(f"conv3d_valid: input {tuple(x.shape)} smaller than kernel")
@@ -135,7 +169,7 @@ def conv3d_valid(
             raise ValueError(f"conv3d_valid: {name} must be contiguous")
     y = torch.empty((B, *out_sp, cout), device=x.device, dtype=x.dtype)
     if B == 0:
-        return y
+        return y, None
     route = conv3d_valid_route(x.dtype, cin, cout)
     if route == "ring":
         x, w = aligned16(x), aligned16(w)
@@ -150,9 +184,93 @@ def conv3d_valid(
         )
     if rc != 0:
         raise RuntimeError(f"conv3d_valid kernel launch failed: CUDA error {rc}")
-    CONV3D_VALID.launches += 1
-    CONV3D_VALID.route_launches[route] += 1
-    return y
+    return y, route
+
+
+def _input_grad_operands(gy: torch.Tensor, w: torch.Tensor, dil) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The valid conv whose output is the input gradient: ``gy`` zero-padded
+    by ``dilation * (k - 1)`` on both sides of each spatial axis (one
+    allocation), and the kernel flipped in space with Cin and Cout swapped,
+    ``[kx, ky, kz, Cout, Cin]``."""
+    pads = [d * (k - 1) for d, k in zip(dil, w.shape[:3])]
+    B, X, Y, Z, cout = gy.shape
+    padded = gy.new_zeros((B, *(s + 2 * p for s, p in zip((X, Y, Z), pads)), cout))
+    px, py, pz = pads
+    padded[:, px : px + X, py : py + Y, pz : pz + Z] = gy
+    return padded, w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+
+
+def conv3d_valid_input_grad_plain(
+    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`conv3d_valid_input_grad`: the same
+    padded, flipped conv through :func:`conv3d_valid_plain`."""
+    padded, wt = _input_grad_operands(gy, w, _tuple(dilation, 3))
+    return conv3d_valid_plain(padded, wt, dilation=dilation)
+
+
+def conv3d_valid_input_grad(
+    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1
+) -> torch.Tensor:
+    """The gradient of ``conv3d_valid(x, w)`` with respect to ``x``, for the
+    output gradient ``gy`` ``[B, Xo, Yo, Zo, Cout]``: ``[B, X, Y, Z, Cin]``
+    in ``gy``'s dtype, summed in float32.
+
+    ``dx[i] = sum_k gy[i - d k] w[k]`` is itself a valid conv: of ``gy``
+    zero-padded by ``d (k - 1)`` on both sides, with the flipped kernel and
+    Cin/Cout swapped.  A CUDA tensor launches K1 for it (counted in
+    ``CONV3D_VALID_INPUT_GRAD``, on the path ``conv3d_valid_route`` names
+    for Cin' = Cout); a CPU tensor runs the plain version."""
+    dil = _tuple(dilation, 3)
+    if gy.device.type == "cpu":
+        return conv3d_valid_input_grad_plain(gy, w, dil)
+    if w.dtype != gy.dtype:
+        raise TypeError(f"conv3d_valid_input_grad: gy {gy.dtype}, w {w.dtype}")
+    padded, wt = _input_grad_operands(gy, w, dil)
+    dx, route = _k1_launch(padded, wt, None, False, dil)
+    if route is not None:
+        CONV3D_VALID_INPUT_GRAD.add(route)
+    return dx
+
+
+def conv3d_valid_weight_grad(
+    x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int], dilation: Sequence[int] | int = 1
+) -> torch.Tensor:
+    """The gradient of ``conv3d_valid(x, w)`` with respect to ``w``
+    ``[kx, ky, kz, Cin, Cout]``, in ``x``'s dtype: plain PyTorch
+    (``torch.nn.grad.conv3d_weight``, cuDNN's wgrad on CUDA, in ``x``'s
+    dtype; float32 on the CPU).  No TPU kernel computes it: the JAX package
+    leaves it to XLA."""
+    kx, ky, kz, cin, cout = w_shape
+    work = torch.float32 if x.device.type == "cpu" else x.dtype
+    dw = torch.nn.grad.conv3d_weight(
+        _to_channels_first(x.to(work)), (cout, cin, kx, ky, kz),
+        _to_channels_first(gy.to(work)), dilation=_tuple(dilation, 3),
+    )
+    return dw.permute(2, 3, 4, 1, 0).to(x.dtype)
+
+
+class Conv3dValidFunction(torch.autograd.Function):
+    """``conv3d_valid(x, w)`` (no bias, no ReLU) with its gradient: the
+    forward and the input gradient through K1 on CUDA, the weight gradient
+    through :func:`conv3d_valid_weight_grad`.  The input gradient is skipped
+    where ``x`` needs none (a network's first layer)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        ctx.dilation = dilation
+        ctx.save_for_backward(x, w)
+        return conv3d_valid(x, w, None, False, dilation)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = conv3d_valid_input_grad(gy, w, ctx.dilation)
+        if ctx.needs_input_grad[1]:
+            gw = conv3d_valid_weight_grad(x, gy, w.shape, ctx.dilation)
+        return gx, gw, None
 
 
 def block_diagonal_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -275,6 +393,28 @@ def batch_norm_inference(
     inv = torch.rsqrt(var.float() + eps) * scale.float()
     shift = bias.float() - mean.float() * inv
     return (x.float() * inv + shift).to(x.dtype)
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode batch norm over the channel (last) axis with flax
+    ``nn.BatchNorm(use_running_average=False)``'s semantics: the statistics
+    over every other axis, in float32, with the fast variance
+    ``E[x^2] - E[x]^2`` clipped at 0 (biased); then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast to ``x``'s
+    dtype.  Returns ``(y, mean, var)``; the gradient flows through the
+    statistics.  (``F.batch_norm`` keeps the unbiased variance for its
+    running update, so the caller updates the running statistics itself.)"""
+    xf = x.float()
+    axes = tuple(range(x.ndim - 1))
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
+    return y.to(x.dtype), mean, var
 
 
 def fold_bn_into_conv(

@@ -9,11 +9,15 @@ layout rules of ``hcunet_tpu/utils/port_torch.py``, on numpy arrays:
 * conv weight: JAX ``[*k, Cin/g, Cout]`` ↔ torch ``[Cout, Cin/g, *k]``;
 * transpose-conv weight: JAX ``[*k, Cin, Cout]`` ↔ torch ``[Cin, Cout, *k]``;
 * BatchNorm ``scale/bias/mean/var`` ↔ ``weight/bias/running_mean/running_var``.
+
+Optax's Adam moments have their parameters' layouts, so the optimizer
+state crosses with the same rules (:func:`torch_adam_state_from_optax`,
+:func:`optax_adam_state_from_torch`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -59,29 +63,34 @@ def unet_state_dict_from_jax_variables(
     variables: Mapping, config: UNetConfig
 ) -> Dict[str, torch.Tensor]:
     """State dict of :class:`hcunet_tpu_torch.models.unet.UNet` from the JAX
-    ``{"params", "batch_stats"}`` tree (numpy or array-like leaves)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    ``{"params", "batch_stats"}`` tree (numpy or array-like leaves).  A tree
+    without ``batch_stats`` (an optimizer moment, say) gives the parameters
+    alone, under the same names."""
+    params, stats = variables["params"], variables.get("batch_stats")
     n = len(config.feature_sizes)
     sd: Dict[str, torch.Tensor] = {}
 
-    def put_block(prefix: str, p: Mapping, s: Mapping):
+    def put_block(prefix: str, p: Mapping, s: Mapping | None):
         for j, (conv, bn) in enumerate(_PAIRS):
-            pj, sj = p[f"ConvBNRelu_{j}"], s[f"ConvBNRelu_{j}"]
+            pj = p[f"ConvBNRelu_{j}"]
             sd[f"{prefix}.{conv}.weight"] = _conv_to_torch(pj["kernel"])
             sd[f"{prefix}.{conv}.bias"] = _t(pj["bias"])
             sd[f"{prefix}.{bn}.weight"] = _t(pj["BatchNorm_0"]["scale"])
             sd[f"{prefix}.{bn}.bias"] = _t(pj["BatchNorm_0"]["bias"])
+            if s is None:
+                continue
+            sj = s[f"ConvBNRelu_{j}"]
             sd[f"{prefix}.{bn}.running_mean"] = _t(sj["BatchNorm_0"]["mean"])
             sd[f"{prefix}.{bn}.running_var"] = _t(sj["BatchNorm_0"]["var"])
             sd[f"{prefix}.{bn}.num_batches_tracked"] = torch.tensor(0)
 
     for i in range(n):
-        put_block(f"down_steps.{i}", params[f"down{i}"], stats[f"down{i}"])
+        put_block(f"down_steps.{i}", params[f"down{i}"], stats and stats[f"down{i}"])
     for i in range(n - 1):
         p = params[f"up{i}"]
         sd[f"up_steps.{i}.up_conv.weight"] = _tconv_to_torch(p["up_kernel"])
         sd[f"up_steps.{i}.up_conv.bias"] = _t(p["up_bias"])
-        put_block(f"up_steps.{i}", p, stats[f"up{i}"])
+        put_block(f"up_steps.{i}", p, stats and stats[f"up{i}"])
     sd["out_conv.weight"] = _conv_to_torch(params["out_kernel"])
     sd["out_conv.bias"] = _t(params["out_bias"])
     return sd
@@ -90,10 +99,12 @@ def unet_state_dict_from_jax_variables(
 def jax_variables_from_unet_state_dict(sd: Mapping, config: UNetConfig) -> Dict:
     """Inverse of :func:`unet_state_dict_from_jax_variables`: the JAX
     ``{"params", "batch_stats"}`` tree, as numpy arrays, from the port's
-    (or the reference's) state dict."""
+    (or the reference's) state dict; ``{"params"}`` alone where ``sd``
+    holds no running statistics."""
     n = len(config.feature_sizes)
     params: Dict = {}
     stats: Dict = {}
+    with_stats = "down_steps.0.batch1.running_mean" in sd
 
     def get_block(prefix: str, p: Dict, s: Dict):
         for j, (conv, bn) in enumerate(_PAIRS):
@@ -105,12 +116,13 @@ def jax_variables_from_unet_state_dict(sd: Mapping, config: UNetConfig) -> Dict:
                     "bias": _np(sd[f"{prefix}.{bn}.bias"]),
                 },
             }
-            s[f"ConvBNRelu_{j}"] = {
-                "BatchNorm_0": {
-                    "mean": _np(sd[f"{prefix}.{bn}.running_mean"]),
-                    "var": _np(sd[f"{prefix}.{bn}.running_var"]),
+            if with_stats:
+                s[f"ConvBNRelu_{j}"] = {
+                    "BatchNorm_0": {
+                        "mean": _np(sd[f"{prefix}.{bn}.running_mean"]),
+                        "var": _np(sd[f"{prefix}.{bn}.running_var"]),
+                    }
                 }
-            }
 
     for i in range(n):
         params[f"down{i}"], stats[f"down{i}"] = {}, {}
@@ -124,7 +136,90 @@ def jax_variables_from_unet_state_dict(sd: Mapping, config: UNetConfig) -> Dict:
         get_block(f"up_steps.{i}", params[f"up{i}"], stats[f"up{i}"])
     params["out_kernel"] = _conv_to_jax(sd["out_conv.weight"])
     params["out_bias"] = _np(sd["out_conv.bias"])
+    if not with_stats:
+        return {"params": params}
     return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+
+
+def optax_adam_state_from_torch(
+    optimizer: torch.optim.Optimizer,
+    model: torch.nn.Module,
+    config: UNetConfig,
+    weight_decay: float = 0.0,
+    schedule_count: int | None = None,
+) -> Dict:
+    """The state dict (flax ``serialization.to_state_dict`` form, numpy
+    leaves) of the optax Adam/AdamW chain that matches ``optimizer``, a
+    ``torch.optim.Adam``/``AdamW`` over ``model.parameters()`` in one group:
+    ``{"0": {"count", "mu", "nu"}, ...}`` with the moments in the JAX
+    parameter tree's layout.  ``schedule_count``: the learning-rate
+    schedule's step count, None for a constant rate.
+
+    The chain is that of ``hcunet_tpu/train/trainer.py::_make_tx``:
+    ``optax.adam`` is ``(ScaleByAdamState, <lr>)`` and ``optax.adamw``
+    ``(ScaleByAdamState, EmptyState(), <lr>)``, where ``<lr>`` is
+    ``ScaleByScheduleState(count)`` under a schedule and ``EmptyState()``
+    (an empty dict) for a constant rate."""
+    names = [n for n, _ in model.named_parameters()]
+    params = dict(model.named_parameters())
+    state = optimizer.state
+    mu, nu, steps = {}, {}, set()
+    for name in names:
+        st = state.get(params[name], {})
+        zero = torch.zeros_like(params[name])
+        mu[name] = st.get("exp_avg", zero)
+        nu[name] = st.get("exp_avg_sq", zero)
+        steps.add(int(st["step"]) if "step" in st else 0)
+    if len(steps) != 1:
+        raise ValueError(f"parameters at different Adam steps {sorted(steps)}")
+    count = np.asarray(steps.pop(), np.int32)
+    last = 2 if weight_decay else 1
+    out = {
+        "0": {
+            "count": count,
+            "mu": jax_variables_from_unet_state_dict(mu, config)["params"],
+            "nu": jax_variables_from_unet_state_dict(nu, config)["params"],
+        }
+    }
+    for i in range(1, last + 1):
+        out[str(i)] = {}
+    if schedule_count is not None:
+        out[str(last)] = {"count": np.asarray(schedule_count, np.int32)}
+    return out
+
+
+def torch_adam_state_from_optax(
+    opt_state: Mapping,
+    optimizer: torch.optim.Optimizer,
+    model: torch.nn.Module,
+    config: UNetConfig,
+) -> Tuple[Dict, int | None]:
+    """Inverse of :func:`optax_adam_state_from_torch`: a state dict that
+    ``optimizer.load_state_dict`` takes (its param groups kept), and the
+    schedule's step count (None when the chain has no schedule state).
+    ``opt_state``: the optax chain's state in state-dict form, as
+    ``msgpack_restore`` returns it."""
+    adam = opt_state["0"]
+    count = int(np.asarray(adam["count"]))
+    mu = unet_state_dict_from_jax_variables({"params": adam["mu"]}, config)
+    nu = unet_state_dict_from_jax_variables({"params": adam["nu"]}, config)
+    sd = optimizer.state_dict()
+    state = {}
+    if count:
+        for i, name in enumerate(n for n, _ in model.named_parameters()):
+            state[i] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name],
+                "exp_avg_sq": nu[name],
+            }
+    sched = opt_state[str(len(opt_state) - 1)]
+    schedule_count = int(np.asarray(sched["count"])) if "count" in sched else None
+    return {"state": state, "param_groups": sd["param_groups"]}, schedule_count
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
-(``csrc/edt_pass.cu``) and K3 (``csrc/dot_blocked.cu``) against their plain
-versions, on the card.
+"""Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``, also as the input
+gradient of a conv), K2 (``csrc/edt_pass.cu``) and K3
+(``csrc/dot_blocked.cu``) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; they skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed::
@@ -18,9 +18,13 @@ from hcunet_tpu_torch.csrc import build
 from hcunet_tpu_torch.ops.conv import (
     CONV3D_ROUTES,
     CONV3D_VALID,
+    CONV3D_VALID_INPUT_GRAD,
     conv3d_valid,
+    conv3d_valid_input_grad,
+    conv3d_valid_input_grad_plain,
     conv3d_valid_plain,
     conv3d_valid_route,
+    conv_valid,
 )
 from hcunet_tpu_torch.ops.distance import (
     EDT_PASS,
@@ -134,6 +138,81 @@ def test_conv3d_valid_ring_path_matches_plain(cuda, case):
         tol = 2.0**-7 * max(1.0, float(want.float().abs().max()))
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol, (case, relu, err, tol)
+
+
+# K1's input gradient at the training shapes: (kernel, Cin, Cout) of the
+# production U-Net's 14 layers whose input needs a gradient (dense weights,
+# groups = 2 as block-diagonal), at a small output gradient; the bf16 ones
+# take the ring path (Cin' = Cout, 16 to 128) but out_conv's (Cin' = 1)
+TRAIN_LAYERS = [
+    ((3, 3, 1), 16, 16), ((3, 3, 2), 16, 32), ((3, 3, 1), 32, 32), ((3, 3, 2), 32, 64),
+    ((3, 3, 1), 64, 64), ((3, 3, 2), 64, 128), ((3, 3, 1), 128, 128),
+    ((3, 3, 2), 128, 64), ((3, 3, 1), 64, 64), ((3, 3, 2), 64, 32), ((3, 3, 1), 32, 32),
+    ((3, 3, 2), 32, 16), ((3, 3, 1), 16, 16), ((1, 1, 1), 16, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layer", range(len(TRAIN_LAYERS)))
+def test_conv3d_valid_input_grad_matches_plain(cuda, layer, dtype):
+    """K1 computing a conv's input gradient (the padded output gradient
+    with the flipped kernel), against the plain version, on the path named
+    for Cin' = Cout, at K1's usual tolerances."""
+    k, cin, cout = TRAIN_LAYERS[layer]
+    rng = np.random.default_rng(300 + layer)
+    gy = torch.from_numpy(rng.standard_normal((2, 13, 11, 6, cout), np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((*k, cin, cout), np.float32) / np.sqrt(np.prod(k) * cin))
+    w = w.to(cuda, dtype)
+    route = conv3d_valid_route(dtype, cout, cin)
+    assert route == ("ring" if dtype == torch.bfloat16 and cout % 8 == 0 else "basic")
+    before = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+    got = conv3d_valid_input_grad(gy, w)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID_INPUT_GRAD.route_launches == {**before, route: before[route] + 1}
+    want = conv3d_valid_input_grad_plain(gy, w)
+    assert got.shape == want.shape == (2, 13 + k[0] - 1, 11 + k[1] - 1, 6 + k[2] - 1, cin)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_conv_gradient_goes_through_k1(cuda, groups):
+    """On the card a conv whose weight needs a gradient runs K1 forward and
+    K1 for the input gradient (none where the input needs none), and its
+    gradients match plain autograd through the plain version (TF32 off);
+    with a bias or ReLU it raises rather than return an output without a
+    gradient."""
+    rng = np.random.default_rng(groups)
+    x0 = torch.from_numpy(rng.standard_normal((2, 12, 11, 7, 16), np.float32)).to(cuda)
+    w0 = torch.from_numpy(rng.standard_normal((3, 3, 2, 16 // groups, 32), np.float32) / 12).to(cuda)
+    r = torch.from_numpy(rng.standard_normal((2, 10, 9, 6, 32), np.float32)).to(cuda)
+    grads = []
+    for kernel in (True, False):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        fwd, grad = CONV3D_VALID.launches, CONV3D_VALID_INPUT_GRAD.launches
+        if kernel:
+            out = conv_valid(x, w, groups=groups)
+        else:
+            from hcunet_tpu_torch.ops.conv import block_diagonal_weights
+
+            wd = block_diagonal_weights(w, groups) if groups > 1 else w
+            out = conv3d_valid_plain(x, wd)
+        (out * r).sum().backward()
+        torch.cuda.synchronize()
+        assert (CONV3D_VALID.launches - fwd, CONV3D_VALID_INPUT_GRAD.launches - grad) == (
+            (1, 1) if kernel else (0, 0))
+        grads.append((x.grad, w.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    w = w0.clone().requires_grad_()
+    before = CONV3D_VALID_INPUT_GRAD.launches
+    conv_valid(x0, w, groups=groups).sum().backward()  # x0 needs no gradient
+    assert CONV3D_VALID_INPUT_GRAD.launches == before
+    wd = torch.zeros((3, 3, 2, 16, 32), device=cuda, requires_grad=True)
+    for kw in (dict(bias=torch.zeros(32, device=cuda)), dict(relu=True)):
+        with pytest.raises(ValueError, match="gradient path"):
+            conv3d_valid(x0, wd, **kw)
 
 
 def test_conv3d_valid_route_is_the_c_entry_points(cuda):

@@ -12,6 +12,7 @@ from hcunet_tpu.models.unet import UNet as JaxUNet
 from hcunet_tpu_torch.config import UNetConfig
 from hcunet_tpu_torch.infer.compile import compile_serving_apply
 from hcunet_tpu_torch.models.unet import UNet
+from hcunet_tpu_torch.train.parity import FAR, bn_cancelled, flat, trajectory_gaps  # noqa: F401
 from hcunet_tpu_torch.utils.port_jax import unet_state_dict_from_jax_variables
 
 # the two-level net of __graft_entry__.py and test_serving_compile.py
@@ -90,3 +91,46 @@ def assert_forwards_match(unet, spatial, batch, atol=5e-5):
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     np.testing.assert_allclose(got_serving, want_serving, atol=atol, rtol=0)
     np.testing.assert_allclose(got_serving, want, atol=atol, rtol=0)
+
+
+# --- training ---------------------------------------------------------------
+
+SMALL_G2 = dict(SMALL, groups=2)
+TRAIN_SPATIAL = (32, 32, 6)
+
+
+def train_batch(seed=0, spatial=TRAIN_SPATIAL):
+    rng = np.random.default_rng(seed)
+    img = rng.random((1, *spatial, 4)).astype(np.float32)
+    mask = (rng.random((1, *spatial, 1)) > 0.7).astype(np.float32)
+    pwl = rng.random((1, *spatial, 1)).astype(np.float32)
+    return img, mask, pwl
+
+
+def assert_grads_match(got, want, rtol):
+    """Per tensor, ``|got - want| <= rtol * max|want|``; a BN-cancelled
+    bias's gradient (0 up to rounding on both sides) within ``rtol`` of its
+    layer's kernel gradient's scale."""
+    got, want = flat(got), flat(want)
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        scale = float(np.abs(w).max())
+        if bn_cancelled(path):
+            kernel = path[:-1] + (("up_kernel",) if path[-1] == "up_bias" else ("kernel",))
+            scale = float(np.abs(want[kernel]).max())
+            assert float(np.abs(w).max()) <= 1e-4 * scale, path
+        np.testing.assert_allclose(got[path], w, rtol=0, atol=rtol * scale, err_msg=str(path))
+
+
+def assert_trajectories_match(got, want, start, lr, steps, far=FAR, share=1e-3, rtol_stats=1e-4):
+    """Two runs of ``steps`` Adam steps at ``lr`` from the variables
+    ``start``, held by ``hcunet_tpu_torch.train.parity.trajectory_gaps``
+    (the rule ``chip_smoke.py`` holds K1's training runs to): every
+    parameter within Adam's step bound, at most ``share`` of each
+    parameter tensor's elements more than ``far`` lr apart (the
+    BN-cancelled biases, whose gradient is 0 up to rounding, by the bound
+    alone), the running statistics within ``rtol_stats`` of their scale
+    (the running means, which take 0.1 of those biases a step, plus the
+    bound)."""
+    for (kind, path), gap in trajectory_gaps(got, want, start, lr, steps, far).items():
+        assert gap <= (share if kind == "share" else rtol_stats), (kind, path, gap)
