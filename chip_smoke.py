@@ -8,10 +8,11 @@ toolkit::
     python3 chip_smoke.py --phases k1     # build K1 and run phase 3 alone
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
-``slice1`` (5), ``k2`` (6), ``slice2`` (7), ``blobs`` (8), ``train`` (9)
-and ``slice3`` (10); phases 1, 2 (only the kernels the chosen phases
-launch) and 11 always run.  A run of fewer than all phases reports no
-launch counts (they are the whole main path's) and ends with
+``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
+(9), ``train`` (10), ``slice3`` (11) and ``cli`` (12); phases 1, 2 (only
+the kernels the chosen phases launch) and 13 always run.  A run of fewer
+than all phases reports no launch counts (they are the whole main path's)
+and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
 Phases (any failure exits non-zero):
 
@@ -41,22 +42,33 @@ Phases (any failure exits non-zero):
    K1 15 times (in bfloat16 14 on the ring path, the 4-channel first conv
    on the basic one), and that the float32 request agrees with a forward
    built on the plain conv;
-6. hold K2 against its plain version, exactly, at the instance tile
+6. the subpixel route of the transposed convs
+   (``compile_serving_apply(subpixel_tconv=True)``: one K1 launch per up
+   level with the four parity kernels stacked along Cout): K1 at the three
+   stacked parity convs of one bench tile batch against its plain version
+   and the three transposed convs timed by both routes (K1 with its pad
+   and interleave, and cuDNN's ``conv_transpose3d``), in bfloat16 and
+   float32, one tile batch of the bf16 serving forward by both routes
+   within 4 % of the output's scale, and the bench-scene request by both
+   routes in turns,
+   the subpixel one launching K1 18 times per tile batch (17 on the ring
+   path: 3 more than the default route, one per up level);
+7. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
    1212^2 x 8, and a ragged shape, on a random mask, and at the first two
    on a sparse background and on the blob mask, timing both passes of
    each;
-7. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
+8. slice 2's path on the bench scene (2304, 2304, 15, 4): the uint8 mask
    from ``Segmenter(use_probability_map=False)``, candidates from
    ``predict_cell_candidates`` with a full-width ResNet50-FPN ``Detector``
    (random weights from a seed) on 9 tile positions of 1047^2 x 15 planes,
    and ``generate_unique_segmentation_mask(backend="device")`` on 4 instance
    tiles, checking that K2 launched 8 times and K1 15 per tile batch; then
    the instance stage once more under ``torch.profiler``;
-8. the instance stage on a synthetic blob scene of one full tile: labels
+9. the instance stage on a synthetic blob scene of one full tile: labels
    with K2 equal to labels with the plain EDT, and >= 90 % of the seeded
    blobs found;
-9. training (slice 8's path): the JAX bench's fit
+10. training (slice 8's path): the JAX bench's fit
    (``hcunet_tpu/benchmarks.py:342-423``) through ``UNetTrainer`` at the
    full width of ``UNetConfig.production_3d()`` in bfloat16 (weights from
    the seed): 40 steps of Adam(3e-3) with ``cross_entropy(method="pixel")``
@@ -70,19 +82,32 @@ Phases (any failure exits non-zero):
    dgrad and the bound; and the fitted weights through ``trainer.save`` and
    ``Segmenter.from_checkpoint``, whose prediction on the 1152^2 x 15
    request must equal that of a ``Segmenter`` on ``trainer.variables``;
-10. slice 3's path, ``analyze`` on the JAX bench's pipeline scene (1536 x
+11. slice 3's path, ``analyze`` on the JAX bench's pipeline scene (1536 x
    1536 x 12, uint16, 160 blob cells; ``numchunks=3``, the auto tile
    geometry, the uint16 transfer, the ``"fused"`` host flood): a warm-up
    of the device stages on one chunk, a timed run (K1 15 launches per tile
    batch), a resume from its journal
    (K1 0 launches, the same cells), a float32-transfer run without overlap
-   under ``torch.profiler`` whose mask the uint16 run's must match within
-   one half quantum, and the ``"fused"`` and ``"materialized"`` backends on
-   one chunk's map, which must give equal labels; on the fitted weights
-   of phase 9 where it ran (as the JAX bench does), else on the random
-   ones;
-11. print one JSON line of kernel rows (``launches``: the count over the
-    paths, slices 1-3 and training, with ``launches_by_path`` beside it;
+   under ``torch.profiler`` on the timed run's first chunk alone, whose
+   mask the uint16 run's must match there within one half quantum, and the
+   ``"fused"`` and ``"materialized"`` backends on that chunk's map, which
+   must give equal labels; on the fitted weights of phase 10 where it ran
+   (as the JAX bench does), else on the random ones;
+12. the user entry points on the fitted weights of phase 10 where it ran,
+    else the seeded ones, saved as a checkpoint beside the detector of
+    phase 8 (``build_detector``): ``hcunet_tpu_torch.cli.main(["analyze",
+    ...])`` (float32, as the command line serves a checkpoint) on a 384 x
+    384 x 12 pipeline scene in ``.npy``, whose ``cells.csv`` must equal a
+    direct ``analyze`` call's, K1 15 launches per tile batch on the basic
+    path, and once more under ``torch.profiler`` with cuDNN free to pick
+    its algorithms; ``validate`` and ``train-unet`` (1 epoch, crop 128 x
+    128 x 12) on a 2-sample
+    ``.npy`` Stack; ``run_batch`` over two ``.npy`` scenes with the command
+    line's model loading, a second pass all cached; the ``hcat`` facade's
+    ``analyze``, whose cells must equal the command line's;
+13. print one JSON line of kernel rows (``launches``: the count over the
+    paths, slices 1-3, the subpixel request, training and the command
+    line's ``analyze``, with ``launches_by_path`` beside it;
     K1's input-gradient rows count the training path's input-gradient
     launches), the card line, and the result line.
 
@@ -140,6 +165,14 @@ LAYER_NAMES = (
     + [f"up{i}.conv{j}" for i in range(3) for j in (1, 2)]
     + ["out_conv"]
 )
+# the up levels of the subpixel route, one stacked parity conv each
+SUBPIXEL_LEVELS = ("up0", "up1", "up2")
+# the command line's scene (a pipeline scene cut so that the host flood
+# stays in seconds) and train-unet's crop (the default's z of 24 is deeper
+# than the scene)
+CLI_SCENE = (384, 384, 12)
+CLI_CELLS = 12
+CLI_CROP = (128, 128, 12)
 # the JAX bench's fit (hcunet_tpu/benchmarks.py:342-423): the 256^2 crop of
 # the pipeline scene, 40 Adam steps at 3e-3; and the steps of the parity runs
 FIT_CROP = 256
@@ -185,10 +218,12 @@ def build_model(cfg, gen):
     return model
 
 
-def record_layers(model, tile_cfg, dev):
+def record_layers(model, tile_cfg, dev, subpixel_tconv=False):
     """Run one tile batch through the serving forward with a recording plain
     conv (no kernel launch) and return the 15 convs' (shape of x, folded
-    weights, bias, relu) in the order the main path runs them."""
+    weights, bias, relu) in the order the main path runs them; with
+    ``subpixel_tconv`` the 18 of the subpixel route (a parity conv before
+    each up level's two)."""
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
 
@@ -200,11 +235,13 @@ def record_layers(model, tile_cfg, dev):
 
     tile_in = [e + 2 * p for e, p in zip(tile_cfg.eval_size, tile_cfg.pad)]
     apply = compile_serving_apply(
-        model, dtype=torch.bfloat16, device=dev, conv=recording_conv
+        model, dtype=torch.bfloat16, device=dev, conv=recording_conv,
+        subpixel_tconv=subpixel_tconv,
     )
     apply(torch.zeros((tile_cfg.batch, *tile_in, model.config.in_channels), device=dev))
-    if len(layers) != len(LAYER_NAMES):
-        raise RuntimeError(f"expected 15 valid convs, recorded {len(layers)}")
+    want = len(LAYER_NAMES) + (len(SUBPIXEL_LEVELS) if subpixel_tconv else 0)
+    if len(layers) != want:
+        raise RuntimeError(f"expected {want} valid convs, recorded {len(layers)}")
     return layers
 
 
@@ -941,33 +978,35 @@ def analyze_phase(model, dev, kernels) -> dict:
         reproducible = bool(torch.equal(p1, p2))
         del p1, p2
 
-        # the float32 transfer, sequential, under the profiler
-        cfg32 = dataclasses.replace(cfg, prob_transfer_dtype="float32")
+        # the float32 transfer, sequential, under the profiler, on the timed
+        # run's first chunk alone (numchunks=2 on it cuts none)
+        cfg32 = dataclasses.replace(cfg, prob_transfer_dtype="float32", numchunks=2)
         t0 = time.perf_counter()
         res32 = profile_device(
-            "analyze (float32 transfer, overlap off)",
-            lambda: run(cfg32, "f32", overlap=False), {"K1": "conv3d_valid"},
+            "analyze on one chunk (float32 transfer, overlap off)",
+            lambda: run(cfg32, "f32", vol[: chunk[0], : chunk[1]], overlap=False),
+            {"K1": "conv3d_valid"},
         )
-        print(f"analyze (float32 transfer, overlap off) under the profiler: "
+        print(f"analyze on one chunk (float32 transfer, overlap off) under the profiler: "
               f"{time.perf_counter() - t0:.3f} s; stage seconds "
               f"{ {k: round(v, 3) for k, v in res32.stage_seconds.items()} }; stage bytes "
               f"{res32.stage_bytes}", flush=True)
         tol = cfg.prob_scale / 131070 + 1e-6
-        a, b = res.mask, res32.mask
+        a, b = res.mask[: chunk[0], : chunk[1]], res32.mask
         bad = np.abs(a - b) > tol
         floor = cfg.prob_floor * cfg.prob_scale
         near = bad & (np.minimum(a, b) == 0) & (np.abs(np.maximum(a, b) - floor) <= 1e-4)
         n_bad, n_near = int(bad.sum()), int(near.sum())
         print(f"uint16 vs float32 transfer: max |d mask| {float(np.abs(a - b).max()):.3e} "
               f"(tolerance {tol:.3e}); {n_bad} voxels over, {n_near} of them within 1e-4 of the "
-              f"floor {floor}; device path bit-reproducible: {reproducible}; cells "
-              f"{len(res.cells)} vs {len(res32.cells)}", flush=True)
+              f"floor {floor}; device path bit-reproducible: {reproducible}; cells on the "
+              f"chunk {len(res32.cells)}", flush=True)
         if n_bad > n_near or (n_near and reproducible):
             raise AssertionError("the uint16 transfer's mask differs from the float32 run's")
 
         # "fused" == "materialized" on one chunk's map; the two floods run
         # at once (each releases the GIL)
-        prob = np.ascontiguousarray(res32.mask[: chunk[0], : chunk[1]])
+        prob = np.ascontiguousarray(res32.mask)
         cand = predict_cell_candidates(x[0][..., list(cfg.detection_channels)], det, device=dev)
 
         def flood(backend):
@@ -1453,17 +1492,381 @@ def train_phase(dev) -> tuple:
     return trainer.model.eval(), counts, rows
 
 
+def record_parity_convs(model, tile_cfg, dev) -> list:
+    """The stacked parity convs of one tile batch of the subpixel route, one
+    per up level, as :func:`record_layers` records them: the calls whose
+    kernel is the upsample kernel halved in x and y."""
+    up = model.config.upsample_kernel
+    half = (up[0] // 2, up[1] // 2, up[2])
+    parity = [layer for layer in record_layers(model, tile_cfg, dev, subpixel_tconv=True)
+              if tuple(layer[1].shape[:3]) == half]
+    if len(parity) != len(SUBPIXEL_LEVELS):
+        raise AssertionError(f"expected {len(SUBPIXEL_LEVELS)} parity convs, got {len(parity)}")
+    return parity
+
+
+def tconv_levels(model, parity, gen, dtype=torch.bfloat16):
+    """Per up level of the serving forward, the transposed conv's inputs in
+    ``dtype``: ``(name, x, w_up, b_up, w_sub, b_sub, stride)``, ``x`` random
+    from ``gen`` at the shape the level meets (the recorded parity conv's
+    input less its padding), ``w_up``/``b_up`` the model's transposed conv
+    and ``w_sub``/``b_sub`` its stacked parity weights, both from the
+    float32 weights."""
+    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights
+    from hcunet_tpu_torch.models.unet import tconv_weight_channels_last
+
+    stride = model.config.upsample_stride
+    for name, step, (x_shape, w_rec, _b, _r) in zip(SUBPIXEL_LEVELS, model.up_steps, parity):
+        B, X, Y, Z, cin = x_shape
+        hx, hy, kz = w_rec.shape[:3]
+        dev = w_rec.device
+        x = torch.randn((B, X - 2 * (hx - 1), Y - 2 * (hy - 1), Z - 2 * (kz - 1), cin),
+                        generator=gen, device=dev).to(dtype)
+        w_up = tconv_weight_channels_last(step.up_conv.weight).detach().float().cpu()
+        b_up = step.up_conv.bias.detach().float().to(dev)
+        w_sub = subpixel_tconv_weights(w_up).to(dev, dtype)
+        yield (name, x, w_up.to(dev, dtype).contiguous(), b_up, w_sub, b_up.repeat(4), stride)
+
+
+def time_tconv_routes(name, x, w_up, b_up, w_sub, b_sub, stride) -> tuple:
+    """One transposed conv by the subpixel route (``tconv_subpixel``: pad, K1,
+    interleave) and by cuDNN's ``conv_transpose3d``, held to each other at
+    K1's tolerance for the dtype and timed with CUDA events in turns (cuDNN,
+    route, route, cuDNN); returns the two mean times in ms."""
+    from hcunet_tpu_torch.infer.compile import tconv_subpixel
+    from hcunet_tpu_torch.ops.conv import conv_transpose_torch
+
+    def route():
+        return tconv_subpixel(x, w_sub, b_sub)
+
+    def cudnn():
+        return conv_transpose_torch(x, w_up, b_up, stride=stride, accum_dtype=x.dtype)
+
+    a, c = route(), cudnn()
+    torch.cuda.synchronize()
+    err, tol = kernel_error(a, c)
+    out_shape = list(a.shape)
+    del a, c
+    t = [cuda_ms(fn) for fn in (cudnn, route, route, cudnn)]
+    sub_ms, cudnn_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    print(f"  {name}: x {list(x.shape)} -> {out_shape}: subpixel route {sub_ms:8.3f} ms, "
+          f"conv_transpose3d {cudnn_ms:8.3f} ms (route/cuDNN {sub_ms / cudnn_ms:.3f}), "
+          f"max |d| {err:.3e} (tol {tol:.3e})", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"subpixel route {name} differs from conv_transpose3d by {err}")
+    return sub_ms, cudnn_ms
+
+
+def subpixel_phase(model, dev, kernel) -> tuple:
+    """The subpixel route of the transposed convs
+    (``compile_serving_apply(subpixel_tconv=True)``): K1 at the three
+    stacked parity convs of one bench tile batch against its plain version,
+    and the three up levels' transposed convs by both routes (K1 with its
+    pad and interleave, and cuDNN's ``conv_transpose3d``), timed, in bf16
+    (the Segmenter's dtype) and float32 (the command line's); one tile batch
+    of the bf16 serving forward by both routes, within 4 % of the output's
+    scale; the bench-scene request by both routes, timed; and, on the
+    subpixel request (the path, with the counts
+    set to 0 just before it), 18 K1 launches per tile batch, 17 of them on
+    the ring path: 3 more ring launches than the default route's 14, one
+    per up level.  Returns the K1 rows and the path's K1 launches."""
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer.serving import Segmenter
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    seg = Segmenter(model, dtype=bf16, device=dev)
+    sub = Segmenter(model, dtype=bf16, device=dev, tile_cfg=seg.tile_cfg)
+    sub.apply_fn = compile_serving_apply(sub.model, dtype=bf16, device=dev, subpixel_tconv=True)
+    tile_cfg = seg.tile_cfg
+    parity = record_parity_convs(seg.model, tile_cfg, dev)
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    # bf16 serves the Segmenter; float32 is what the command line serves
+    for dtype in (bf16, torch.float32):
+        dt = "bf16" if dtype == bf16 else "f32"
+        print(f"subpixel route: K1 at the 3 stacked parity convs of one tile batch of {tile_cfg} "
+              f"vs plain, {dt}:", flush=True)
+        level_rows = []
+        for name, (x_shape, w, b, relu) in zip(SUBPIXEL_LEVELS, parity):
+            x = torch.randn(x_shape, generator=gen_dev, device=dev).to(dtype)
+            level_rows.append(check_kernel(f"subpixel_{name}", x, w.to(dtype), b, relu))
+            del x
+        ms, lib, bound = (sum(r[k] for r in level_rows) for k in ("ms", "library_ms", "bound_ms"))
+        print(f"K1 subpixel {dt}, 3 parity convs: kernel {ms:.3f} ms, cuDNN conv3d on the parity "
+              f"form {lib:.3f} ms, bound {bound:.3f} ms (kernel at {100 * bound / ms:.1f}% of it)",
+              flush=True)
+        # the three transposed convs by both routes, on their real inputs' shapes
+        print(f"transposed convs, {dt}: the subpixel route (pad, one K1 launch, interleave) vs "
+              "cuDNN conv_transpose3d, in turns:", flush=True)
+        for row, level in zip(level_rows, tconv_levels(seg.model, parity, gen_dev, dtype)):
+            row["route_ms"], row["conv_transpose3d_ms"] = time_tconv_routes(*level)
+        tot_sub, tot_cudnn = (sum(r[k] for r in level_rows)
+                              for k in ("route_ms", "conv_transpose3d_ms"))
+        print(f"transposed convs {dt}, 3 up levels of one tile batch: subpixel route "
+              f"{tot_sub:.3f} ms, conv_transpose3d {tot_cudnn:.3f} ms (route/cuDNN "
+              f"{tot_sub / tot_cudnn:.3f})", flush=True)
+        rows += level_rows
+        torch.cuda.empty_cache()
+
+    # one tile batch of the serving forward by both routes
+    tile_in = [e + 2 * p for e, p in zip(tile_cfg.eval_size, tile_cfg.pad)]
+    x = torch.randn((tile_cfg.batch, *tile_in, model.config.in_channels), generator=gen_dev,
+                    device=dev)
+    a, c = sub.apply_fn(x), seg.apply_fn(x)
+    gap = float((a - c).abs().max()) / float(c.abs().max())
+    print(f"serving forward, one tile batch {list(x.shape)}, bf16: subpixel vs default route "
+          f"max |d| / max |out| {gap:.4f} (limit 0.04)", flush=True)
+    if not gap <= 0.04:
+        raise AssertionError(f"the subpixel route's output is {gap:.4f} of the scale off")
+    del x, a, c
+    torch.cuda.empty_cache()
+
+    # the bench-scene request by both routes, in turns; the second subpixel
+    # request is the path whose launches count
+    scene = np.random.default_rng(SEED).random((*BENCH_SCENE, model.config.in_channels),
+                                               np.float32)
+    batches = n_tile_batches(seg, BENCH_SCENE)
+    seg.predict(scene)  # warm both routes once
+    sub.predict(scene)
+    sec = {"default": [], "subpixel": []}
+    for label, server in (("default", seg), ("subpixel", sub), ("subpixel", sub),
+                          ("default", seg)):
+        torch.cuda.synchronize()
+        reset_counts([kernel])
+        t0 = time.perf_counter()
+        server.predict(scene)
+        sec[label].append(time.perf_counter() - t0)
+        if label == "subpixel":
+            path_launches, path_routes = kernel.launches, dict(kernel.route_launches)
+    mvx = math.prod(BENCH_SCENE) / 1e6
+    print(f"bench-scene request {BENCH_SCENE}, bf16: default route "
+          f"{', '.join(f'{mvx / t:.2f}' for t in sec['default'])} MVx/s, subpixel route "
+          f"{', '.join(f'{mvx / t:.2f}' for t in sec['subpixel'])} MVx/s "
+          f"(host clock, in turns default, subpixel, subpixel, default)", flush=True)
+    want = {"basic": batches, "ring": 17 * batches}
+    print(f"subpixel request: K1 {path_launches} launches over {batches} tile batches, by path "
+          f"{path_routes} (expected {want}: stacked design, 3 more ring launches per tile batch "
+          f"than the default route's 14, one per up level)", flush=True)
+    if path_launches != 18 * batches or path_routes != want:
+        raise AssertionError(f"subpixel route launched K1 {path_routes}, expected {want}")
+    print(f"subpixel phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, path_launches
+
+
+def save_unet_and_detector(model, det, root) -> tuple:
+    """``model`` and ``det`` as checkpoints in the JAX package's format,
+    written by the port: ``(unet path, detector path)``."""
+    from hcunet_tpu_torch.utils.checkpoint import save_checkpoint
+    from hcunet_tpu_torch.utils.port_jax import (
+        jax_variables_from_detector_state_dict,
+        jax_variables_from_unet_state_dict,
+    )
+
+    unet = os.path.join(root, "unet.hcunet")
+    save_checkpoint(unet, jax_variables_from_unet_state_dict(model.state_dict(), model.config),
+                    model.config, snapshot_sources=False)
+    detector = os.path.join(root, "detector.hcunet")
+    save_checkpoint(detector, jax_variables_from_detector_state_dict(det.state_dict()),
+                    det.config, snapshot_sources=False)
+    return unet, detector
+
+
+def write_stack_sample(root, name, seed) -> np.ndarray:
+    """A pipeline scene of ``CLI_SCENE`` as a Stack sample in the on-disk
+    layout: ``<name>.npy`` [Z, Y, X, C] uint16, ``<name>.mask.npy`` 0/255
+    (truth > 0.3) and ``<name>.pwl.npy``.  Returns the volume [X, Y, Z, C]."""
+    vol, truth = pipeline_scene(*CLI_SCENE, CLI_CELLS, seed=seed)
+    np.save(os.path.join(root, f"{name}.npy"), np.ascontiguousarray(vol.transpose(2, 1, 0, 3)))
+    mask = np.where(truth > 0.3, 255, 0).astype(np.uint8)
+    np.save(os.path.join(root, f"{name}.mask.npy"), np.ascontiguousarray(mask.transpose(2, 1, 0)))
+    np.save(os.path.join(root, f"{name}.pwl.npy"), np.ascontiguousarray(truth.transpose(2, 1, 0)))
+    return vol
+
+
+def cli_main(argv) -> object:
+    """``hcunet_tpu_torch.cli.main(argv)``, which must return 0, and the JSON
+    it printed last."""
+    import io
+
+    from hcunet_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"hcunet-torch {' '.join(argv)} returned {rc}: {out}")
+    lines = out.strip().splitlines()
+    for i in range(len(lines) - 1, -1, -1):
+        if lines[i].startswith(("{", "[")):
+            with contextlib.suppress(json.JSONDecodeError):
+                return json.loads("\n".join(lines[i:]))
+    raise AssertionError(f"hcunet-torch {' '.join(argv)} printed no JSON: {out!r}")
+
+
+def cli_phase(model, dev, kernel) -> int:
+    """The user entry points on the card: the command line's ``analyze``
+    (float32, as it serves a checkpoint) on a ``CLI_SCENE`` pipeline scene
+    against a direct ``analyze()`` on the same models, ``validate`` and
+    ``train-unet`` on a 2-sample ``.npy`` Stack, ``run_batch`` over two
+    ``.npy`` scenes with the command line's model loading (a second pass
+    all cached), and the ``hcat`` facade's ``analyze`` against the command
+    line's cells.  Returns K1's launches on the command line's ``analyze``
+    (the path, with the counts set to 0 just before it), all on the basic
+    path (float32)."""
+    from hcunet_tpu_torch import PipelineConfig, analyze, compat
+    from hcunet_tpu_torch.apps.batch import run_batch
+    from hcunet_tpu_torch.cli import _load_models
+    from hcunet_tpu_torch.config import TileConfig
+    from hcunet_tpu_torch.infer.pipeline import _load_volume
+    from hcunet_tpu_torch.utils.checkpoint import load_unet
+
+    t_phase = time.perf_counter()
+    marks = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = build_detector(dev)
+        unet_path, det_path = save_unet_and_detector(model, det, root)
+        stack = os.path.join(root, "stack")
+        os.makedirs(stack)
+        write_stack_sample(stack, "s0", SEED)
+        write_stack_sample(stack, "s1", SEED + 1)
+        vol_path = os.path.join(stack, "s0.npy")
+        marks.append(("set-up", time.perf_counter()))
+
+        # analyze through the command line, counted as the path
+        out = os.path.join(root, "cli_out")
+        torch.cuda.synchronize()
+        reset_counts([kernel])
+        t0 = time.perf_counter()
+        info = cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
+                         "--numchunks", "2", "--no-cochlea", "--out", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches, routes = kernel.launches, dict(kernel.route_launches)
+        marks.append(("cli analyze", time.perf_counter()))
+        vol = _load_volume(vol_path)
+        tiles = TileConfig()
+        batches = unet_tile_batches(vol.shape[:3], tiles)
+        want = {"basic": 15 * batches, "ring": 0}
+        print(f"cli analyze {CLI_SCENE} (float32, numchunks 2 = one chunk, {tiles}): "
+              f"{cli_s:.3f} s, {info}, K1 {launches} launches {routes} (expected {want})",
+              flush=True)
+        if routes != want or launches != 15 * batches:
+            raise AssertionError(f"cli analyze launched K1 {routes}, expected {want}")
+
+        # the same through analyze() directly, on the same models
+        umodel, apply, detector = _load_models(unet_path, det_path, dev)
+        direct = analyze(volume=vol, unet_apply=apply, detector=detector,
+                         cfg=PipelineConfig(numchunks=2, unet=umodel.config),
+                         work_dir=os.path.join(root, "direct"), fit_cochlea=False, device=dev)
+        with open(os.path.join(out, "cells.csv"), "rb") as f:
+            cli_csv = f.read()
+        with open(os.path.join(root, "direct", "cells.csv"), "rb") as f:
+            same = f.read() == cli_csv
+        print(f"direct analyze(): {len(direct.cells)} cells, cells.csv equal to the command "
+              f"line's: {same}", flush=True)
+        if not same or len(direct.cells) != info["cells"]:
+            raise AssertionError("the command line's analyze differs from analyze()")
+        marks.append(("direct analyze", time.perf_counter()))
+
+        # the command as a user runs it (cuDNN free to pick its algorithms),
+        # under the profiler
+        torch.backends.cudnn.deterministic = False
+        profile_device(
+            "cli analyze (cudnn.deterministic off)",
+            lambda: cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
+                              "--numchunks", "2", "--no-cochlea",
+                              "--out", os.path.join(root, "cli_profiled")]),
+            {"K1": "conv3d_valid", "conv_transpose3d (cuDNN dgrad)": "dgrad"},
+        )
+        torch.backends.cudnn.deterministic = True
+        marks.append(("cli analyze, profiled", time.perf_counter()))
+
+        summary = cli_main(["validate", stack, "--unet", unet_path])
+        print(f"cli validate: {summary}", flush=True)
+        if len(summary) != 2 or not all(0.0 <= r["dice"] <= 1.0 for r in summary):
+            raise AssertionError(f"bad validate summary {summary}")
+        marks.append(("cli validate", time.perf_counter()))
+
+        ckpt = os.path.join(root, "trained.hcunet")
+        info_t = cli_main(["train-unet", stack, "--out", ckpt, "--epochs", "1",
+                           "--crop", *map(str, CLI_CROP)])
+        trained, _v, hyper = load_unet(ckpt)
+        finite = all(bool(torch.isfinite(p).all()) for p in trained.state_dict().values())
+        print(f"cli train-unet (1 epoch, 2 samples, crop {CLI_CROP}): {info_t}, "
+              f"learning_rate {hyper['learning_rate']}, weights finite: {finite}", flush=True)
+        if not finite or info_t != {"checkpoint": ckpt}:
+            raise AssertionError("train-unet wrote a bad checkpoint")
+        marks.append(("cli train-unet", time.perf_counter()))
+
+        batch_root = os.path.join(root, "batch")
+        os.makedirs(batch_root)
+        for i in range(2):
+            shutil.copy(os.path.join(stack, f"s{i}.npy"), os.path.join(batch_root, f"s{i}.npy"))
+
+        def one(img, out_dir):
+            analyze(img, unet_apply=apply, detector=detector,
+                    cfg=PipelineConfig(numchunks=2, unet=umodel.config), work_dir=out_dir,
+                    fit_cochlea=False, device=dev)
+
+        first = run_batch(batch_root, one, pattern="**/*.npy")
+        again = run_batch(batch_root, one, pattern="**/*.npy")
+        print(f"run_batch over 2 .npy scenes: {[(os.path.basename(r['image']), r['state']) for r in first]}; "
+              f"again: cached {[r.get('cached') for r in again]}", flush=True)
+        if [r["state"] for r in first] != ["done", "done"] or [r.get("cached") for r in again] != [True, True]:
+            raise AssertionError("run_batch did not analyze both scenes, or reran one")
+        with open(os.path.join(batch_root, "s0_cellBycell", "cells.csv"), "rb") as f:
+            if f.read() != cli_csv:
+                raise AssertionError("run_batch's cells differ from the command line's")
+        marks.append(("batch", time.perf_counter()))
+
+        cfg = umodel.config
+        unet = compat.unet(
+            image_dimensions=3, in_channels=cfg.in_channels, out_channels=cfg.out_channels,
+            feature_sizes=list(cfg.feature_sizes),
+            kernel={"conv1": cfg.kernel1, "conv2": cfg.kernel2},
+            upsample_kernel=cfg.upsample_kernel, max_pool_kernel=cfg.max_pool_kernel,
+            upsample_stride=cfg.upsample_stride, groups=cfg.groups, device=dev,
+        )
+        unet.load(unet_path)
+        rcnn = compat.rcnn(det_path, device=dev)
+        _mask, _uniq, cells = compat.analyze(
+            volume=vol, numchunks=2, path_chunk_storage=os.path.join(root, "facade"),
+            unet_model=unet, faster_rcnn=rcnn, tiles=tiles, fit_cochlea=False,
+            write_all_cells_pkl=False,
+        )
+        key = [(c.unique_id, tuple(c.center), c.volume) for c in cells]
+        same = key == [(c.unique_id, tuple(c.center), c.volume) for c in direct.cells]
+        print(f"facade analyze: {len(cells)} cells, equal to the command line's: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("the facade's cells differ from the command line's")
+        marks.append(("facade", time.perf_counter()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    split = ", ".join(f"{name} {t - t0:.1f}" for (name, t), (_n, t0) in
+                      zip(marks, [("start", t_phase)] + marks[:-1]))
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s ({split})", flush=True)
+    return launches
+
+
 # phases that --phases can pick, in the order they run, and the kernels
 # each launches
 PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
     "slice1": ("K1",),
+    "subpixel": ("K1",),
     "k2": ("K2",),
     "slice2": ("K1", "K2"),
     "blobs": ("K2",),
     "train": ("K1",),
     "slice3": ("K1", "K2", "host"),
+    "cli": ("K1", "host"),
 }
 
 
@@ -1559,44 +1962,58 @@ def main(argv=None) -> int:
         marks.append(("slice 1", time.perf_counter()))
     del seg
     torch.cuda.empty_cache()
-    # phase 6: K2 against its plain version at the main path's shapes
+    # phase 6: the subpixel route of the transposed convs through K1
+    sub_launches = 0
+    if "subpixel" in phases:
+        sub_rows, sub_launches = subpixel_phase(model, dev, CONV3D_VALID)
+        rows += sub_rows
+        torch.cuda.empty_cache()
+        marks.append(("subpixel", time.perf_counter()))
+    # phase 7: K2 against its plain version at the main path's shapes
     if "k2" in phases:
         print("K2 vs plain (exact), axes (0, 1):")
         for shape, kind in [(shape, "random") for shape in EDT_SHAPES] + EDT_STRESS:
             k2_rows.append(check_edt(shape, dev, kind))
             torch.cuda.empty_cache()
         marks.append(("K2 checks", time.perf_counter()))
-    # phase 7: slice 2's path on the bench scene
+    # phase 8: slice 2's path on the bench scene
     if "slice2" in phases:
         counts = slice2_phase(model, dev, kernels)
         torch.cuda.empty_cache()
         marks.append(("slice 2", time.perf_counter()))
-    # phase 8: the instance stage with K2 against the plain EDT
+    # phase 9: the instance stage with K2 against the plain EDT
     if "blobs" in phases:
         check_instance_stage(dev)
         torch.cuda.empty_cache()
         marks.append(("instance blobs", time.perf_counter()))
-    # phase 9: training, and the fitted weights for slice 3
+    # phase 10: training, and the fitted weights for slice 3 and the command line
     grad_rows = []
     train_counts = {"forward": 0, "input_grad": 0}
     if "train" in phases:
         model, train_counts, grad_rows = train_phase(dev)
         torch.cuda.empty_cache()
         marks.append(("train", time.perf_counter()))
-    # phase 10: slice 3's path, analyze on the pipeline scene
+    # phase 11: slice 3's path, analyze on the pipeline scene
     if "slice3" in phases:
         counts3 = analyze_phase(model, dev, kernels)
         marks.append(("slice 3", time.perf_counter()))
+    # phase 12: the user entry points (command line, batch, facade)
+    cli_launches = 0
+    if "cli" in phases:
+        cli_launches = cli_phase(model, dev, CONV3D_VALID)
+        marks.append(("cli", time.perf_counter()))
 
-    # phase 11: results.  A kernel's launches are those of the whole main
-    # path (slices 1-3 and training): a run of fewer phases gives none, and
-    # ends with a line that says which phases ran in place of the result
-    # line.
+    # phase 13: results.  A kernel's launches are those of the whole main
+    # path (slices 1-3, the subpixel route, training and the command line):
+    # a run of fewer phases gives none, and ends with a line that says which
+    # phases ran in place of the result line.
     full = phases == list(PHASES)
     for kernel_rows, name in ((rows, "K1"), (k2_rows, "K2"), (k3_rows, "K3")):
-        by_path = {"slice1": total if name == "K1" else 0, "slice2": counts[name],
-                   "slice3": counts3[name],
-                   "train": train_counts["forward"] if name == "K1" else 0}
+        k1 = name == "K1"
+        by_path = {"slice1": total if k1 else 0, "subpixel": sub_launches if k1 else 0,
+                   "slice2": counts[name], "slice3": counts3[name],
+                   "train": train_counts["forward"] if k1 else 0,
+                   "cli": cli_launches if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
@@ -1604,10 +2021,12 @@ def main(argv=None) -> int:
         row["launches"] = train_counts["input_grad"] if full else None
         row["launches_by_path"] = {"train": train_counts["input_grad"]} if full else None
     paths = {"slice1": f"slice 1 {total} K1",
+             "subpixel": f"the subpixel request {sub_launches} K1",
              "slice2": f"slice 2 {counts['K1']} K1, {counts['K2']} K2 and {counts['K3']} K3",
              "train": f"training {train_counts['forward']} K1 forward and "
                       f"{train_counts['input_grad']} K1 input-gradient",
-             "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3"}
+             "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3",
+             "cli": f"the command line's analyze {cli_launches} K1"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "

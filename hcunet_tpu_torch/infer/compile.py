@@ -9,8 +9,12 @@ eval forward up to BN-folding rounding:
   host (grouped weights expanded to block-diagonal dense first);
 * each of the valid convs is kernel K1 (:func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`)
   with the folded bias and the ReLU in its epilogue;
-* transpose convs are ``F.conv_transpose3d``, pools and the crop-and-concat
-  at the skips plain PyTorch, channels-last throughout.
+* transpose convs are ``F.conv_transpose3d`` by default; with
+  ``subpixel_tconv=True`` each stride-(2, 2) one with an even x/y kernel
+  runs as its four parity valid convs, stacked along Cout into one K1
+  launch, plus an interleave (:func:`tconv_subpixel`);
+* pools and the crop-and-concat at the skips are plain PyTorch,
+  channels-last throughout.
 
 The JAX function's z-block lane packing was sized for the TPU's 128-lane
 matrix unit and is not carried over: only its contract is.
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import Callable, List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from hcunet_tpu_torch.config import UNetConfig, resolve_device
 from hcunet_tpu_torch.models.unet import (
@@ -58,12 +63,56 @@ def _folded_conv_params(conv, bn, groups: int, dtype, device) -> _Folded:
     )
 
 
+def subpixel_tconv_weights(w_up: torch.Tensor) -> torch.Tensor:
+    """The four parity kernels of a stride-(2, 2, 1) transposed conv with
+    an even x/y kernel, stacked along Cout.
+
+    ``w_up`` ``[kx, ky, kz, Cin, Cout]`` (the transposed conv's weight,
+    channels-last) gives ``[kx/2, ky/2, kz, Cin, 4 * Cout]`` with
+    ``w[ux, uy, uz, :, (2 rx + ry) * Cout + c] = w_up[kx-2-2ux+rx,
+    ky-2-2uy+ry, kz-1-uz, :, c]``: the JAX package's
+    ``pack_tconv_subpixel_weights`` (x/y parity taps, flipped, and z
+    flipped), with the parities side by side."""
+    kx, ky = w_up.shape[0], w_up.shape[1]
+    ux = torch.arange(kx // 2)
+    uy = torch.arange(ky // 2)
+    subs = [
+        w_up[kx - 2 - 2 * ux + rx][:, ky - 2 - 2 * uy + ry].flip(2)
+        for rx in (0, 1)
+        for ry in (0, 1)
+    ]
+    return torch.cat(subs, dim=-1).contiguous()
+
+
+def tconv_subpixel(
+    x: torch.Tensor,
+    w_sub: torch.Tensor,
+    b_sub: torch.Tensor,
+    conv: Callable = conv3d_valid,
+) -> torch.Tensor:
+    """A stride-(2, 2, 1) transposed conv as one valid conv and an
+    interleave: ``x`` ``[B, X, Y, Z, Cin]`` zero-padded by ``k/2 - 1`` in x
+    and y and ``kz - 1`` in z (one allocation), ``conv`` with the stacked
+    parity kernels ``w_sub`` (:func:`subpixel_tconv_weights`) and the bias
+    repeated per parity ``b_sub`` (float32 ``[4 * Cout]``), then
+    ``out[2m + rx, 2n + ry] = parity (rx, ry)[m, n]``.  Returns
+    ``[B, 2X + kx - 2, 2Y + ky - 2, Z + kz - 1, Cout]`` in ``x``'s dtype,
+    the transposed conv's output with its bias."""
+    hx, hy, kz = w_sub.shape[:3]
+    pad = (0, 0, kz - 1, kz - 1, hy - 1, hy - 1, hx - 1, hx - 1)
+    y = conv(F.pad(x, pad).contiguous(), w_sub, b_sub, False)
+    B, Xo, Yo, Zo, n = y.shape
+    y = y.reshape(B, Xo, Yo, Zo, 2, 2, n // 4).permute(0, 1, 4, 2, 5, 3, 6)
+    return y.reshape(B, 2 * Xo, 2 * Yo, Zo, n // 4)
+
+
 def compile_serving_apply(
     model: UNet,
     *,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
     conv: Callable = conv3d_valid,
+    subpixel_tconv: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the BN-folded inference forward for a 3D valid-conv UNet.
 
@@ -73,6 +122,12 @@ def compile_serving_apply(
     model's plain forward where the JAX function does: 2D configs,
     dilation > 1, a z upsample stride other than 1 or a pool other than
     (2, 2, 1).
+
+    ``subpixel_tconv=True`` runs each transposed conv through
+    :func:`tconv_subpixel` (one ``conv`` call per up level) where the JAX
+    function takes its subpixel route: an x/y upsample stride of (2, 2) and
+    an even x/y upsample kernel; elsewhere, and by default as in JAX, the
+    transposed convs are ``F.conv_transpose3d``.
     """
     dev = resolve_device(device)
     cfg: UNetConfig = model.config
@@ -98,13 +153,21 @@ def compile_serving_apply(
             _folded_conv_params(step.conv2, step.batch2, cfg.groups, dtype, dev),
         ]
 
+    use_subpixel = subpixel_tconv and (
+        tuple(cfg.upsample_stride[:2]) == (2, 2)
+        and cfg.upsample_kernel[0] % 2 == 0
+        and cfg.upsample_kernel[1] % 2 == 0
+    )
     downs = [block(step) for step in model.down_steps]
     ups = []
     for step in model.up_steps:
-        w_up = tconv_weight_channels_last(step.up_conv.weight).detach()
+        w_up = tconv_weight_channels_last(step.up_conv.weight).detach().float().cpu()
+        b_up = step.up_conv.bias.detach().float().cpu()
+        if use_subpixel:
+            w_up, b_up = subpixel_tconv_weights(w_up), b_up.repeat(4)
         ups.append((
             w_up.to(device=dev, dtype=dtype).contiguous(),
-            step.up_conv.bias.detach().float().to(dev),
+            b_up.to(dev),
             block(step),
         ))
     w_out = conv_weight_channels_last(model.out_conv.weight).detach()
@@ -123,9 +186,12 @@ def compile_serving_apply(
                 skips.append(x)
                 x = max_pool(x, cfg.max_pool_kernel)
         for w_up, b_up, convs in ups:
-            x = conv_transpose_torch(
-                x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
-            )
+            if use_subpixel:
+                x = tconv_subpixel(x, w_up, b_up, conv)
+            else:
+                x = conv_transpose_torch(
+                    x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
+                )
             skip = skips.pop()
             common = [min(a, s) for a, s in zip(x.shape[1:-1], skip.shape[1:-1])]
             x = crop_spatial(x, common)

@@ -118,9 +118,11 @@ def load_model(path: str, device=None):
         return _unet(cfg, variables), variables, hyper
     if isinstance(cfg, DetectorConfig):
         from hcunet_tpu_torch.models.detection import Detector
+        from hcunet_tpu_torch.models.resnet import SmallBackbone
         from hcunet_tpu_torch.utils.port_jax import detector_state_dict_from_jax_variables
 
         det = Detector(cfg, device=device)
-        det.load_state_dict(detector_state_dict_from_jax_variables(variables))
+        body = "small" if isinstance(det.backbone.body, SmallBackbone) else "resnet50"
+        det.load_state_dict(detector_state_dict_from_jax_variables(variables, body))
         return det, variables, hyper
     raise ValueError(f"no model family for config type {type(cfg).__name__}")

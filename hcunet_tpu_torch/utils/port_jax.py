@@ -304,3 +304,86 @@ def detector_state_dict_from_jax_variables(
     _put_linear(sd, "roi_heads.box_predictor.cls_score", head["cls_score"])
     _put_linear(sd, "roi_heads.box_predictor.bbox_pred", head["bbox_pred"])
     return sd
+
+
+def _bn_to_jax(sd: Mapping, prefix: str) -> Tuple[Dict, Dict]:
+    return (
+        {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])},
+        {"mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])},
+    )
+
+
+def _conv_params(sd: Mapping, prefix: str) -> Dict:
+    p = {"kernel": _conv_to_jax(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _linear_params(sd: Mapping, prefix: str) -> Dict:
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def jax_variables_from_detector_state_dict(
+    sd: Mapping, backbone: str = "resnet50", fpn_channels: int = 256
+) -> Dict:
+    """The JAX ``Detector``'s ``{"trunk", "head"}`` variable tree (numpy
+    leaves) from the port's detector state dict: the inverse of
+    :func:`detector_state_dict_from_jax_variables`, so that a detector
+    checkpoint written by the port loads in the JAX package."""
+    body_p: Dict = {}
+    body_s: Dict = {}
+    body = "backbone.body"
+    if backbone == "resnet50":
+        body_p["stem_conv"] = _conv_params(sd, f"{body}.conv1")
+        body_p["stem_bn"], body_s["stem_bn"] = _bn_to_jax(sd, f"{body}.bn1")
+        blocks = sorted({  # (stage, block) of every "backbone.body.layer<s>.<b>...."
+            (int(k.split(".")[2][5:]), int(k.split(".")[3]))
+            for k in sd if k.startswith(f"{body}.layer")
+        })
+        for stage, b in blocks:
+            t = f"{body}.layer{stage}.{b}"
+            name = f"stage{stage + 1}_block{b}"
+            bp: Dict = {}
+            bs: Dict = {}
+            for i in range(3):
+                bp[f"Conv_{i}"] = _conv_params(sd, f"{t}.conv{i + 1}")
+                bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{t}.bn{i + 1}")
+            if f"{t}.downsample.0.weight" in sd:
+                bp["downsample_conv"] = _conv_params(sd, f"{t}.downsample.0")
+                bp["downsample_bn"], bs["downsample_bn"] = _bn_to_jax(sd, f"{t}.downsample.1")
+            body_p[name], body_s[name] = bp, bs
+    elif backbone == "small":
+        for i in range(4):
+            body_p[f"Conv_{2 * i}"] = _conv_params(sd, f"{body}.conv{i}_0")
+            body_p[f"BatchNorm_{i}"], body_s[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{body}.bn{i}")
+            body_p[f"Conv_{2 * i + 1}"] = _conv_params(sd, f"{body}.conv{i}_1")
+    else:
+        raise ValueError(f"unknown backbone {backbone}")
+
+    fpn = {}
+    for i, lvl in enumerate(("c2", "c3", "c4", "c5")):
+        fpn[f"lateral_{lvl}"] = _conv_params(sd, f"backbone.fpn.inner_blocks.{i}.0")
+    for i, lvl in enumerate(("p2", "p3", "p4", "p5")):
+        fpn[f"output_{lvl}"] = _conv_params(sd, f"backbone.fpn.layer_blocks.{i}.0")
+    rpn = {
+        "conv": _conv_params(sd, "rpn.head.conv.0.0"),
+        "cls_logits": _conv_params(sd, "rpn.head.cls_logits"),
+        "bbox_pred": _conv_params(sd, "rpn.head.bbox_pred"),
+    }
+    fc6 = _np(sd["roi_heads.box_head.fc6.weight"])  # [out, c*h*w], (c, h, w) order
+    k = int(round((fc6.shape[1] / fpn_channels) ** 0.5))
+    fc6 = fc6.reshape(-1, fpn_channels, k, k).transpose(0, 2, 3, 1).reshape(fc6.shape[0], -1)
+    head = {
+        "fc6": {"kernel": fc6.T.copy(), "bias": _np(sd["roi_heads.box_head.fc6.bias"])},
+        "fc7": _linear_params(sd, "roi_heads.box_head.fc7"),
+        "cls_score": _linear_params(sd, "roi_heads.box_predictor.cls_score"),
+        "bbox_pred": _linear_params(sd, "roi_heads.box_predictor.bbox_pred"),
+    }
+    return {
+        "trunk": {
+            "params": {"body": body_p, "fpn": fpn, "rpn_head": rpn},
+            "batch_stats": {"body": body_s},
+        },
+        "head": {"params": {"box_head": head}},
+    }

@@ -152,6 +152,47 @@ TRAIN_LAYERS = [
 ]
 
 
+# The subpixel route of the transposed convs (compile_serving_apply(
+# subpixel_tconv=True)): one K1 launch per up level with the four parity
+# kernels stacked along Cout, on x zero-padded by (3, 3, 1).  The padded x
+# and stacked weights at the three up levels of a production_3d (156, 156,
+# 10) tile: Cin 128 / 64 / 32, stacked Cout 256 / 128 / 64.
+SUBPIXEL_CASES = [
+    ((1, 18, 18, 8, 128), (4, 4, 2, 128, 256)),
+    ((1, 32, 32, 8, 64), (4, 4, 2, 64, 128)),
+    ((2, 60, 60, 8, 32), (4, 4, 2, 32, 64)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(SUBPIXEL_CASES)), ids=["up0", "up1", "up2"])
+def test_conv3d_valid_subpixel_parity_convs_match_plain(cuda, case, dtype):
+    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights, tconv_subpixel
+
+    xs, ws = SUBPIXEL_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    cin, cout = xs[-1], ws[-1] // 4
+    x = torch.from_numpy(rng.standard_normal((xs[0], xs[1] - 6, xs[2] - 6, xs[3] - 2, cin),
+                                             np.float32)).to(cuda, dtype)
+    w_up = torch.from_numpy(rng.standard_normal((8, 8, 2, cin, cout), np.float32))
+    w_sub = (subpixel_tconv_weights(w_up) / np.sqrt(4 * 4 * 2 * cin)).to(cuda, dtype)
+    assert tuple(w_sub.shape) == ws
+    b = torch.from_numpy(rng.standard_normal(cout, np.float32)).to(cuda).repeat(4)
+    route = conv3d_valid_route(dtype, cin, ws[-1])
+    assert route == ("ring" if dtype == torch.bfloat16 else "basic")
+    before = dict(CONV3D_VALID.route_launches)
+    got = tconv_subpixel(x, w_sub, b)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in CONV3D_VALID.route_launches.items()} == {
+        r: int(r == route) for r in CONV3D_ROUTES}
+    want = tconv_subpixel(x, w_sub, b, conv3d_valid_plain)
+    assert got.shape == want.shape == (xs[0], 2 * xs[1] - 6, 2 * xs[2] - 6, xs[3] - 1, cout)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (case, err, tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("layer", range(len(TRAIN_LAYERS)))
 def test_conv3d_valid_input_grad_matches_plain(cuda, layer, dtype):

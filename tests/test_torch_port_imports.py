@@ -35,9 +35,10 @@ leaked = sorted(k for k in sys.modules
                 if k in ("jax", "msgpack", "optax", "hcunet_tpu")
                 or k.startswith(("jax.", "jaxlib", "flax", "msgpack.", "optax.", "hcunet_tpu.", "hcat")))
 print(len(names), leaked)
-assert len(names) >= 46, names
+assert len(names) >= 52, names
 for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "utils.checkpoint",
-          "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms"):
+          "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms",
+          "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -45,8 +46,10 @@ assert not leaked, leaked
 
 def test_port_imports_no_jax_or_jax_package():
     """Import every module of the port in a fresh interpreter (this one has
-    JAX loaded by conftest), the training slice's among them, and check that
-    neither JAX, flax, optax, msgpack nor the JAX package came with it."""
+    JAX loaded by conftest), the training slice's and the entry points'
+    (command line, facade, batch, validation, profiling) among them, and
+    check that neither JAX, flax, optax, msgpack nor the JAX package came
+    with it."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL],
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,

@@ -72,21 +72,22 @@ def port_unet(cfg, variables):
     return model.eval()
 
 
-def assert_forwards_match(unet, spatial, batch, atol=5e-5):
+def assert_forwards_match(unet, spatial, batch, atol=5e-5, **serving_kwargs):
     """Port forward and serving forward against JAX ``apply`` and serving,
-    for ``unet = jax_unet(...)``."""
+    for ``unet = jax_unet(...)``; ``serving_kwargs`` (``subpixel_tconv=``)
+    go to both serving compilers."""
     cfg, jmodel, variables = unet
     x = np.random.default_rng(1).random((batch, *spatial, cfg.in_channels), np.float32)
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
     want_serving = np.asarray(
-        jax_serving_apply(jmodel, variables, dtype=jnp.float32)(jnp.asarray(x))
+        jax_serving_apply(jmodel, variables, dtype=jnp.float32, **serving_kwargs)(jnp.asarray(x))
     )
     model = port_unet(cfg, variables)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
-    got_serving = compile_serving_apply(model, dtype=torch.float32, device="cpu")(
-        torch.from_numpy(x)
-    ).numpy()
+    got_serving = compile_serving_apply(
+        model, dtype=torch.float32, device="cpu", **serving_kwargs
+    )(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape and got_serving.shape == want.shape
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     np.testing.assert_allclose(got_serving, want_serving, atol=atol, rtol=0)
