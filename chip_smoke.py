@@ -9,8 +9,9 @@ toolkit::
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
 ``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
-(9), ``train`` (10), ``slice3`` (11) and ``cli`` (12); phases 1, 2 (only
-the kernels the chosen phases launch) and 13 always run.  A run of fewer
+(9), ``train`` (10), ``slice3`` (11), ``cli`` (12) and ``recurrent``
+(13); phases 1, 2 (only the kernels the chosen phases launch) and 14
+always run.  A run of fewer
 than all phases reports no launch counts (they are the whole main path's)
 and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
@@ -105,9 +106,24 @@ Phases (any failure exits non-zero):
     ``.npy`` Stack; ``run_batch`` over two ``.npy`` scenes with the command
     line's model loading, a second pass all cached; the ``hcat`` facade's
     ``analyze``, whose cells must equal the command line's;
-13. print one JSON line of kernel rows (``launches``: the count over the
-    paths, slices 1-3, the subpixel request, training and the command
-    line's ``analyze``, with ``launches_by_path`` beside it;
+13. the recurrent family's serving (``recurrent_phase``) at full width on
+    the JAX bench's 256^2 x 10 geometry: a ``RecursiveUNet``
+    (``RUNetConfig()``, 10 timesteps) and an ``RDCNet`` (``RDCNetConfig()``),
+    random weights from the seed; K1 against its plain version at every
+    distinct same-padding conv of both serving forwards (the stacked
+    parity convs and RDCNet's five dilations among them) in bf16 and
+    float32, timed beside cuDNN's padded ``F.conv3d``, the pad and the
+    bound; ``compile_recurrent_apply`` in bf16 at B=1 with ``split_x`` 1
+    and 4 and (RecursiveUNet) a batch of 4, MVx/s, 200 K1 launches a
+    RecursiveUNet forward (190 ring) and 71 an RDCNet one (all basic);
+    float32 splits equal to unsplit, the K1 forward against one on the
+    plain conv, bf16 within 4 % of the model's own eval forward;
+    ``predict-recurrent`` through ``cli.main`` (batched and ``--split-x 4``)
+    equal to ``compile_recurrent_apply``; one forward under the profiler;
+14. print one JSON line of kernel rows (``launches``: the count over the
+    paths, slices 1-3, the subpixel request, training, the command
+    line's ``analyze`` and the recurrent forwards, with
+    ``launches_by_path`` beside it;
     K1's input-gradient rows count the training path's input-gradient
     launches), the card line, and the result line.
 
@@ -255,9 +271,22 @@ def kernel_error(got, want) -> tuple[float, float]:
     return float((got.float() - want.float()).abs().max()), tol
 
 
-def check_kernel(name, x, w, b, relu):
+def in_range_taps(n, p, k, d) -> int:
+    """Along one axis of a conv over an input of size ``n`` zero-padded by
+    ``p`` on each side (kernel ``k``, dilation ``d``): the number of (output,
+    tap) pairs whose tap falls inside the input."""
+    return sum(1 for o in range(n + 2 * p - d * (k - 1)) for t in range(k)
+               if p <= o + d * t < p + n)
+
+
+def check_kernel(name, x, w, b, relu, dilation=1, pad=None):
     """K1 against its plain version on one input (``w`` in ``x``'s dtype);
-    returns a row."""
+    returns a row.  ``pad``: for a same-padding conv (``conv_same``), the
+    zero padding ``(px, py, pz)`` that ``x`` already holds; the library
+    time is then cuDNN's ``F.conv3d`` with that padding on the unpadded
+    input, the bound counts the bytes of the unpadded input and the
+    operations of the taps inside it, and the row also gives the pad's own
+    time (``pad_ms``)."""
     from hcunet_tpu_torch.ops.conv import (
         CONV3D_VALID,
         conv3d_valid,
@@ -268,27 +297,48 @@ def check_kernel(name, x, w, b, relu):
     dtype, x_shape = x.dtype, tuple(x.shape)
     k1_route = conv3d_valid_route(dtype, w.shape[3], w.shape[4])
     before = dict(CONV3D_VALID.route_launches)
-    got = conv3d_valid(x, w, b, relu)
+    got = conv3d_valid(x, w, b, relu, dilation)
     taken = [r for r, n in CONV3D_VALID.route_launches.items() if n != before[r]]
     if taken != [k1_route]:
         raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
-    want = conv3d_valid_plain(x, w, b, relu)
+    want = conv3d_valid_plain(x, w, b, relu, dilation)
     torch.cuda.synchronize()
     err, tol = kernel_error(got, want)
     del got, want
 
-    x_cf = x.permute(0, 4, 1, 2, 3)
     w_cf = w.permute(4, 3, 0, 1, 2)
     b_lib = b.to(dtype)
-    kernel_ms = cuda_ms(lambda: conv3d_valid(x, w, b, relu))
-    plain_ms = cuda_ms(lambda: conv3d_valid_plain(x, w, b, relu))
-    library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_cf, w_cf, b_lib))
+    kernel_ms = cuda_ms(lambda: conv3d_valid(x, w, b, relu, dilation))
+    plain_ms = cuda_ms(lambda: conv3d_valid_plain(x, w, b, relu, dilation))
+    pad_ms = None
+    if pad is None:
+        x_cf = x.permute(0, 4, 1, 2, 3)
+        library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_cf, w_cf, b_lib,
+                                                                dilation=dilation))
+    else:
+        px, py, pz = pad
+        core = x[:, px:x_shape[1] - px, py:x_shape[2] - py, pz:x_shape[3] - pz].contiguous()
+        x_cf = core.permute(0, 4, 1, 2, 3)
+        library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(
+            x_cf, w_cf, b_lib, padding=pad, dilation=dilation))
+        pad_ms = cuda_ms(lambda: torch.nn.functional.pad(core, (0, 0, pz, pz, py, py, px, px)))
+        del core, x_cf
 
     kx, ky, kz, cin, cout = w.shape
-    out_vox = x_shape[0] * (x_shape[1] - kx + 1) * (x_shape[2] - ky + 1) * (x_shape[3] - kz + 1)
+    out_vox = x_shape[0] * math.prod(
+        s - dilation * (k - 1) for s, k in zip(x_shape[1:4], (kx, ky, kz)))
     es = x.element_size()
-    flops = 2.0 * out_vox * kx * ky * kz * cin * cout
-    nbytes = (x.numel() + w.numel() + out_vox * cout) * es + b.numel() * 4
+    if pad is None:
+        pairs, x_elems = out_vox * kx * ky * kz, x.numel()
+    else:
+        # the same conv on the unpadded input: only the (output, tap) pairs
+        # whose tap falls inside it do work, and only it has to be read
+        core = [s - 2 * p for s, p in zip(x_shape[1:4], pad)]
+        pairs = x_shape[0] * math.prod(
+            in_range_taps(n, p, k, dilation) for n, p, k in zip(core, pad, (kx, ky, kz)))
+        x_elems = x_shape[0] * math.prod(core) * cin
+    flops = 2.0 * pairs * cin * cout
+    nbytes = (x_elems + w.numel() + out_vox * cout) * es + b.numel() * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -306,11 +356,15 @@ def check_kernel(name, x, w, b, relu):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
+    if pad is not None:
+        row["pad_ms"] = pad_ms
     print(
-        f"  {row['name']:34s} {k1_route:5s} x{list(x_shape)} w{list(w.shape)} err {err:.3e} "
+        f"  {row['name']:34s} {k1_route:5s} x{list(x_shape)} w{list(w.shape)}"
+        + (f" d{dilation}" if dilation != 1 else "") + f" err {err:.3e} "
         f"(tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
         f"cudnn {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms "
-        f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
+        f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)"
+        + (f" pad {pad_ms:.3f} ms" if pad is not None else ""),
         flush=True,
     )
     if not err <= tol:
@@ -1854,6 +1908,354 @@ def cli_phase(model, dev, kernel) -> int:
     return launches
 
 
+# the recurrent phase: the JAX bench's recurrent geometry
+# (hcunet_tpu/benchmarks.py:429-476), full width, 10 timesteps
+RECURRENT_SCENE = (256, 256, 10)
+RECURRENT_BATCH = 4
+RECURRENT_SPLIT = 4
+RECURRENT_REPS = 3
+# the convs of one RecursiveUNet timestep and one RDCNet iteration (and its
+# output conv), in the order the serving forwards run them
+RUNET_CONVS = (
+    "down1.conv1", "down1.conv2",
+    *(f"{b}_{g}.{c}" for g in ("fh", "fz") for b, c in (
+        ("down2", "conv1"), ("down2", "conv2"), ("down3", "conv1"), ("down3", "conv2"),
+        ("up1", "parity"), ("up1", "conv1"), ("up1", "conv2"))),
+    "up2.parity", "up2.conv1", "up2.conv2", "out_conv",
+)
+RDCNET_CONVS = ("squeeze", *(f"dilation{d}" for d in range(1, 6)), "merge")
+# float32 serving forward on K1 against the one on the plain conv, relative
+# to the output's scale: K1's own float32 tolerance (``kernel_error``), held
+# over the whole forward
+RECURRENT_F32_TOL = 1e-5
+
+
+def build_recurrent(model, gen):
+    """``model`` (a RecursiveUNet or RDCNet) with He-normal conv weights (fan
+    in as in the JAX package), zero biases and random, non-trivial batch-norm
+    statistics and affine parameters, all from ``gen``; eval mode."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+                w = m.weight
+                cin = w.shape[0] if isinstance(m, torch.nn.ConvTranspose3d) else w.shape[1]
+                fan_in = cin * math.prod(w.shape[2:])
+                w.copy_(torch.randn(w.shape, generator=gen) * math.sqrt(2.0 / fan_in))
+                m.bias.zero_()
+            elif isinstance(m, torch.nn.BatchNorm3d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    return model.eval()
+
+
+def record_recurrent_convs(model, dev, names) -> tuple:
+    """One bf16 serving forward of ``model`` at ``RECURRENT_SCENE`` with a
+    recording plain conv (no kernel launch).  Returns the distinct convs
+    ``(name, x shape (padded), w, b, relu, dilation, pad)`` in the order
+    they first run, with ``names`` naming the convs of one step, and every
+    call's label and record.  Every recurrent conv
+    keeps its size, so its padding is ``dilation * (k - 1) / 2``."""
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
+
+    calls = []
+
+    def recording_conv(x, w, b, relu, dilation=1):
+        calls.append((tuple(x.shape), w, b, relu, tuple(dilation) if not isinstance(
+            dilation, int) else (dilation,) * 3))
+        return conv3d_valid_plain(x, w, b, relu, dilation)
+
+    apply = compile_recurrent_apply(model, dtype=torch.bfloat16, device=dev, conv=recording_conv)
+    apply(torch.zeros((1, *RECURRENT_SCENE, model.config.in_channels), device=dev))
+    per_step = len(names)
+    extra = 1 if names is RDCNET_CONVS else 0  # RDCNet's output conv
+    if len(calls) != per_step * model.config.timesteps + extra:
+        raise AssertionError(f"recorded {len(calls)} convs, expected "
+                             f"{per_step} x {model.config.timesteps} + {extra}")
+    labels = [names[i % per_step] for i in range(len(calls) - extra)] + ["out_conv"] * extra
+    seen, out = set(), []
+    for label, (xs, w, b, relu, dil) in zip(labels, calls):
+        key = (xs, tuple(w.shape), relu, dil)
+        if key in seen:
+            continue
+        seen.add(key)
+        pad = tuple(d * (k - 1) // 2 for d, k in zip(dil, w.shape[:3]))
+        out.append((label, xs, w, b, relu, dil[0], pad))
+    return out, labels, calls
+
+
+def recurrent_k1_rows(family, model, dev, gen_dev) -> list:
+    """K1 against its plain version at each distinct conv of ``model``'s
+    serving forward at ``RECURRENT_SCENE``, bf16 and float32, timed beside
+    the plain version, cuDNN's ``F.conv3d`` with the same padding, the pad
+    and the bound; then the sums over one forward's launches."""
+    names = RUNET_CONVS if family == "runet" else RDCNET_CONVS
+    convs, labels, calls = record_recurrent_convs(model, dev, names)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"{family}: K1 at the {len(convs)} distinct convs of a forward at "
+              f"{RECURRENT_SCENE} vs plain, {dt}:", flush=True)
+        by_key = {}
+        for label, xs, w, b, relu, dil, pad in convs:
+            core = [s - 2 * p for s, p in zip(xs[1:4], pad)]
+            x = torch.randn((xs[0], *core, xs[4]), generator=gen_dev, device=dev).to(dtype)
+            px, py, pz = pad
+            x = torch.nn.functional.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous()
+            row = check_kernel(f"{family}_{label}", x, w.to(dtype).contiguous(), b, relu,
+                               dilation=dil, pad=pad)
+            by_key[(xs, tuple(w.shape), relu, dil)] = row
+            rows.append(row)
+            del x
+        # one forward's K1 launches at the shapes they run at
+        fwd = [by_key[(xs, tuple(w.shape), relu, d[0])] for xs, w, _b, relu, d in calls]
+        sums = {k: sum(r[k] for r in fwd) for k in ("ms", "bound_ms", "plain_ms",
+                                                     "library_ms", "pad_ms")}
+        ring = sum(1 for r in fwd if r["k1_route"] == "ring")
+        print(f"K1 over one {family} {dt} forward ({len(fwd)} launches, {ring} ring): kernel "
+              f"{sums['ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms (kernel at "
+              f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it), plain {sums['plain_ms']:.3f} "
+              f"ms, cuDNN conv3d with the padding {sums['library_ms']:.3f} ms, the pads "
+              f"{sums['pad_ms']:.3f} ms", flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_forward(apply, x, kernel, want_routes, label) -> tuple:
+    """``RECURRENT_REPS`` forwards of ``apply`` on ``x`` after a warm-up,
+    host clock around each (ending in a synchronize), the counts set to 0
+    just before the first and read just after it.  Returns (output, mean
+    seconds, K1 launches of one forward)."""
+    out = apply(x)
+    secs = []
+    for i in range(RECURRENT_REPS):
+        torch.cuda.synchronize()
+        reset_counts([kernel])
+        t0 = time.perf_counter()
+        out = apply(x)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches, routes = kernel.launches, dict(kernel.route_launches)
+    mvx = math.prod(x.shape[:4]) / 1e6
+    print(f"  {label}: {', '.join(f'{mvx / t:.2f}' for t in secs)} MVx/s "
+          f"({', '.join(f'{1e3 * t:.1f}' for t in secs)} ms a forward of {list(x.shape)}); "
+          f"K1 {launches} launches {routes} (expected {want_routes})", flush=True)
+    if routes != want_routes:
+        raise AssertionError(f"{label}: K1 launched {routes}, expected {want_routes}")
+    if out.shape[:4] != x.shape[:4] or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+    return out, sum(secs) / len(secs), launches
+
+
+def profile_recurrent(label, fn) -> None:
+    """One forward under ``torch.profiler``: the device's busy share, K1's
+    share by path, and the device time under the pads
+    (``aten::constant_pad_nd``), the interleaves and other copies
+    (``aten::clone``), the joins and halo refreshes (``aten::cat``,
+    ``aten::stack``), the pools and the gates; the idle rest is launch
+    gaps and host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(ev, self_only):
+        name = "self_device_time_total" if self_only else "device_time_total"
+        us = getattr(ev, name, None)
+        if us is None:
+            us = getattr(ev, name.replace("device", "cuda"))
+        return us
+
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev_us(e, True) for e in kernels) / 1e3
+    if busy == 0:
+        print(f"profile of {label}: device time not measured (no device events)")
+        return
+    k1 = {name: sum(dev_us(e, True) for e in kernels if sym in e.key) / 1e3
+          for name, sym in (("ring", "conv3d_valid_ring_kernel"),
+                            ("basic", "conv3d_valid_kernel"))}
+    ops = {}
+    for op in ("aten::constant_pad_nd", "aten::clone", "aten::cat", "aten::stack",
+               "aten::max_pool3d_with_indices", "aten::tanh", "aten::sigmoid", "aten::mul",
+               "aten::add", "aten::zeros", "aten::ones"):
+        ops[op] = sum(dev_us(e, False) for e in events if e.key == op) / 1e3
+    print(f"profile of {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%: launch gaps and "
+          f"host work), K1 ring {k1['ring']:.2f} ms + basic {k1['basic']:.2f} ms "
+          f"({100 * sum(k1.values()) / busy:.1f}% of device time); by op: "
+          + ", ".join(f"{op[6:]} {ms:.2f} ms" for op, ms in ops.items()), flush=True)
+    for e in sorted(kernels, key=lambda e: -dev_us(e, True))[:8]:
+        print(f"  {dev_us(e, True) / 1e3:9.2f} ms {e.count:5d}x  {e.key[:110]}")
+
+
+def write_recurrent_stack(path, seed) -> np.ndarray:
+    """A uint16 stack of ``RECURRENT_SCENE`` in the on-disk layout [Z, Y, X,
+    C] at ``path``; returns it normalized as ``predict-recurrent`` reads it,
+    [X, Y, Z, C] float32 in [-1, 1]."""
+    from hcunet_tpu_torch.data.transforms import integer_unit_scale
+
+    vol = np.random.default_rng(seed).integers(0, 65535, (*RECURRENT_SCENE, 4), dtype=np.uint16)
+    np.save(path, np.ascontiguousarray(vol.transpose(2, 1, 0, 3)))
+    return ((vol.astype(np.float32) / integer_unit_scale(vol.dtype) - 0.5) / 0.5).astype(
+        np.float32)
+
+
+def recurrent_phase(dev, kernel) -> tuple:
+    """The recurrent family's serving on the card at full width: a
+    ``RecursiveUNet`` (``RUNetConfig()``: 16/32/64, 10 timesteps) and an
+    ``RDCNet`` (``RDCNetConfig()``: complexity 10, 10 iterations), random
+    weights from the seed.  K1 at every distinct conv of both serving
+    forwards (bf16 and float32); the JAX bench geometry (B=1 at
+    ``RECURRENT_SCENE`` with ``split_x`` 1 and 4, and a batch of 4 for the
+    RecursiveUNet) in bf16, timed, with K1's launches per forward (RUNet 200,
+    190 ring; RDCNet 71, all basic); at float32 each split equal to its
+    unsplit forward and the K1 forward within ``RECURRENT_F32_TOL`` of the
+    scale of one on the plain conv; in bf16 the serving forward within 4 % of
+    the scale of the model's own eval forward (bf16 and float32);
+    ``predict-recurrent`` through ``cli.main`` on two ``.npy`` stacks from a
+    checkpoint the port wrote, and again with ``--split-x 4``, equal to
+    ``compile_recurrent_apply``; and one RUNet forward under the profiler.
+    Returns the K1 rows and the K1 launches of the path (the timed forwards'
+    first runs and the command's)."""
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
+    from hcunet_tpu_torch.utils.checkpoint import save_checkpoint
+    from hcunet_tpu_torch.utils.port_jax import jax_variables_from_runet_state_dict
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    models = {
+        "runet": build_recurrent(RecursiveUNet(RUNetConfig()), gen).to(dev),
+        "rdcnet": build_recurrent(RDCNet(RDCNetConfig()), gen).to(dev),
+    }
+    rows, launches = [], 0
+    x1 = torch.randn((1, *RECURRENT_SCENE, 4), generator=gen_dev, device=dev)
+    for family, model in models.items():
+        rows += recurrent_k1_rows(family, model, dev, gen_dev)
+        n = model.config.timesteps
+        per = {"basic": n, "ring": 19 * n} if family == "runet" else {"basic": 7 * n + 1,
+                                                                      "ring": 0}
+        print(f"{family} serving, bf16, {RECURRENT_SCENE}, host clock:", flush=True)
+        out, base_s, k = time_forward(compile_recurrent_apply(model, device=dev), x1, kernel,
+                                      per, "B=1, split_x=1")
+        launches += k
+        split = compile_recurrent_apply(model, device=dev, split_x=RECURRENT_SPLIT)
+        _o, split_s, k = time_forward(split, x1, kernel, per, f"B=1, split_x={RECURRENT_SPLIT}")
+        launches += k
+        if family == "runet":
+            xb = torch.randn((RECURRENT_BATCH, *RECURRENT_SCENE, 4), generator=gen_dev,
+                             device=dev)
+            _o, batch_s, k = time_forward(compile_recurrent_apply(model, device=dev), xb,
+                                          kernel, per, f"B={RECURRENT_BATCH}")
+            launches += k
+            del xb, _o
+
+        # bf16 against the model's own eval forward, bf16 and float32
+        with torch.no_grad():
+            model32 = model(x1).float()
+            m16 = type(model)(model.config, dtype=torch.bfloat16)
+            m16.load_state_dict(model.state_dict())
+            model16 = m16.to(dev).eval()(x1).float()
+        scale = float(model32.abs().max())
+        g16 = float((out - model16).abs().max()) / float(model16.abs().max())
+        g32 = float((out - model32).abs().max()) / scale
+        d16 = float((model16 - model32).abs().max()) / scale
+        print(f"  bf16 serving vs the model's float32 eval forward: {g32:.4f} of the scale "
+              f"(limit 0.04; output scale {scale:.3f}); vs its bf16 eval forward {g16:.4f}, "
+              f"which is itself {d16:.4f} from the float32 one", flush=True)
+        if not g32 <= 0.04:
+            raise AssertionError(f"{family}: bf16 serving {g32:.4f} of the scale off the model")
+        del m16, model16
+
+        # float32: split equal to unsplit, K1 against the plain conv.  RDCNet's
+        # transposed conv is cuDNN's dgrad, whose default algorithms sum in
+        # an order that changes from run to run: the split is held with
+        # cuDNN deterministic, and the unsplit forward's own run-to-run gap
+        # without it is printed beside
+        f32_apply = compile_recurrent_apply(model, dtype=torch.float32, device=dev)
+        rerun_d = float((f32_apply(x1) - f32_apply(x1)).abs().max())
+        torch.backends.cudnn.deterministic = True
+        try:
+            f32 = f32_apply(x1)
+            f32_split = compile_recurrent_apply(model, dtype=torch.float32, device=dev,
+                                                split_x=RECURRENT_SPLIT)(x1)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        f32_plain = compile_recurrent_apply(model, dtype=torch.float32, device=dev,
+                                            conv=conv3d_valid_plain)(x1)
+        split_d = float((f32_split - f32).abs().max())
+        plain_d = float((f32 - f32_plain).abs().max()) / float(f32_plain.abs().max())
+        print(f"  float32: split_x={RECURRENT_SPLIT} vs unsplit max |d| {split_d:.3e} "
+              f"(must be 0; cuDNN deterministic; the unsplit forward run twice without it: "
+              f"{rerun_d:.3e}); K1 vs the plain conv {plain_d:.3e} of the scale (tolerance "
+              f"{RECURRENT_F32_TOL}); K1 vs the model's float32 forward "
+              f"{float((f32 - model32).abs().max()) / scale:.3e}", flush=True)
+        if split_d != 0.0 or not plain_d <= RECURRENT_F32_TOL:
+            raise AssertionError(f"{family}: float32 split {split_d}, K1 vs plain {plain_d}")
+        vox = math.prod(RECURRENT_SCENE) / 1e6
+        print(f"{family} serving summary (bf16): B=1 {vox / base_s:.2f} MVx/s, split_x="
+              f"{RECURRENT_SPLIT} {vox / split_s:.2f} MVx/s"
+              + (f", B={RECURRENT_BATCH} {RECURRENT_BATCH * vox / batch_s:.2f} MVx/s"
+                 if family == "runet" else ""), flush=True)
+        del out, f32, f32_split, f32_plain, model32
+        torch.cuda.empty_cache()
+
+    # predict-recurrent through the command line, on a checkpoint the port wrote
+    runet = models["runet"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_recurrent_")
+    try:
+        ckpt = os.path.join(root, "runet.hcunet")
+        save_checkpoint(ckpt, jax_variables_from_runet_state_dict(runet.state_dict()),
+                        runet.config, snapshot_sources=False)
+        paths = [os.path.join(root, f"r{i}.npy") for i in range(2)]
+        vols = [write_recurrent_stack(p, SEED + i) for i, p in enumerate(paths)]
+        batch = torch.from_numpy(np.stack(vols)).to(dev)
+        for flags, split_x in (([], 1), (["--split-x", str(RECURRENT_SPLIT)], RECURRENT_SPLIT)):
+            out_dir = os.path.join(root, f"out{split_x}")
+            torch.cuda.synchronize()
+            reset_counts([kernel])
+            t0 = time.perf_counter()
+            info = cli_main(["predict-recurrent", *paths, "--checkpoint", ckpt,
+                             "--out-dir", out_dir, *flags])
+            sec = time.perf_counter() - t0
+            cli_launches, cli_routes = kernel.launches, dict(kernel.route_launches)
+            launches += cli_launches
+            apply = compile_recurrent_apply(runet, device=dev, split_x=split_x)
+            if split_x == 1:
+                want = apply(batch).cpu().numpy()
+            else:
+                want = np.stack([apply(batch[i:i + 1])[0].cpu().numpy() for i in range(2)])
+            same = all(np.array_equal(np.load(info["outputs"][p]), want[i])
+                       for i, p in enumerate(paths))
+            print(f"predict-recurrent {' '.join(flags) or '(batched)'} on 2 stacks "
+                  f"{RECURRENT_SCENE}: {sec:.3f} s, K1 {cli_launches} launches {cli_routes}, "
+                  f"outputs equal to compile_recurrent_apply's: {same}", flush=True)
+            # one batched forward, or one forward per volume under --split-x
+            want_n = 20 * runet.config.timesteps * (1 if split_x == 1 else len(paths))
+            if not same or cli_launches != want_n:
+                raise AssertionError(f"predict-recurrent {flags}: equal {same}, "
+                                     f"{cli_launches} K1 launches")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    apply = compile_recurrent_apply(runet, device=dev)
+    profile_recurrent(f"one RecursiveUNet bf16 forward {list(x1.shape)}", lambda: apply(x1))
+    print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, launches
+
+
 # phases that --phases can pick, in the order they run, and the kernels
 # each launches
 PHASES = {
@@ -1867,6 +2269,7 @@ PHASES = {
     "train": ("K1",),
     "slice3": ("K1", "K2", "host"),
     "cli": ("K1", "host"),
+    "recurrent": ("K1",),
 }
 
 
@@ -2002,9 +2405,17 @@ def main(argv=None) -> int:
     if "cli" in phases:
         cli_launches = cli_phase(model, dev, CONV3D_VALID)
         marks.append(("cli", time.perf_counter()))
+    # phase 13: the recurrent family's serving
+    rec_launches = 0
+    if "recurrent" in phases:
+        rec_rows, rec_launches = recurrent_phase(dev, CONV3D_VALID)
+        rows += rec_rows
+        torch.cuda.empty_cache()
+        marks.append(("recurrent", time.perf_counter()))
 
-    # phase 13: results.  A kernel's launches are those of the whole main
-    # path (slices 1-3, the subpixel route, training and the command line):
+    # phase 14: results.  A kernel's launches are those of the whole main
+    # path (slices 1-3, the subpixel route, training, the command line and
+    # the recurrent family):
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
@@ -2013,7 +2424,8 @@ def main(argv=None) -> int:
         by_path = {"slice1": total if k1 else 0, "subpixel": sub_launches if k1 else 0,
                    "slice2": counts[name], "slice3": counts3[name],
                    "train": train_counts["forward"] if k1 else 0,
-                   "cli": cli_launches if k1 else 0}
+                   "cli": cli_launches if k1 else 0,
+                   "recurrent": rec_launches if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
@@ -2026,7 +2438,8 @@ def main(argv=None) -> int:
              "train": f"training {train_counts['forward']} K1 forward and "
                       f"{train_counts['input_grad']} K1 input-gradient",
              "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3",
-             "cli": f"the command line's analyze {cli_launches} K1"}
+             "cli": f"the command line's analyze {cli_launches} K1",
+             "recurrent": f"the recurrent forwards and predict-recurrent {rec_launches} K1"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "

@@ -12,14 +12,20 @@ __version__ = "0.1.0"
 from hcunet_tpu_torch.config import (
     DetectorConfig,
     PipelineConfig,
+    RDCNetConfig,
+    RUNetConfig,
     TileConfig,
     UNetConfig,
     WatershedConfig,
     auto_tile_config,
 )
+from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
 from hcunet_tpu_torch.infer.pipeline import AnalyzeResult, analyze
+from hcunet_tpu_torch.models.rdcnet import RDCNet
+from hcunet_tpu_torch.models.runet import RecursiveUNet
 
 __all__ = [
-    "AnalyzeResult", "DetectorConfig", "PipelineConfig", "TileConfig", "UNetConfig",
-    "WatershedConfig", "__version__", "analyze", "auto_tile_config",
+    "AnalyzeResult", "DetectorConfig", "PipelineConfig", "RDCNet", "RDCNetConfig",
+    "RUNetConfig", "RecursiveUNet", "TileConfig", "UNetConfig", "WatershedConfig",
+    "__version__", "analyze", "auto_tile_config", "compile_recurrent_apply",
 ]

@@ -10,16 +10,18 @@ Subcommands:
     preprocess   build COM/vector training targets from label masks
     validate     dice / pixel-error validation on a Stack dataset
     study        aggregate per-cell stats across analyzed images (+figures)
+    predict-recurrent  a recurrent checkpoint's raw head over z-stacks
 
 Each parser takes the JAX command's arguments with its defaults; the JAX
-command's ``train-rcnn``, ``train-recurrent``, ``predict-recurrent``,
-``pretrain-backbone`` and ``bench`` wait for their back ends.  The
+command's ``train-rcnn``, ``train-recurrent``, ``pretrain-backbone`` and
+``bench`` wait for their back ends.  The
 commands that run a model also take ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions of the kernels on the host): there is no fallback
 to the CPU when the card is missing.  Checkpoints are the JAX package's zip
 format, so a checkpoint written by either command line loads in the other.
-The U-Net serves in its checkpoint's dtype, float32, as the JAX command
-does.  Multi-device runs (``--spatial-shards``, ``--data-parallel`` above
+The U-Net serves in its checkpoint's dtype, float32, and
+``predict-recurrent`` in bfloat16 through ``compile_recurrent_apply``, as
+the JAX commands do.  Multi-device runs (``--spatial-shards``, ``--data-parallel`` above
 1) are not ported yet and exit with a message.
 """
 
@@ -129,6 +131,29 @@ def _add_study(sub):
     p.add_argument("--group-by", default="promoter")
 
 
+def _add_predict_recurrent(sub):
+    p = sub.add_parser(
+        "predict-recurrent",
+        help="run a recurrent checkpoint over z-stacks through the recurrent "
+        "serving forward; writes the raw head stack [X, Y, Z, out_channels] as "
+        ".npy (sigmoid channel 0 for the probability map)",
+    )
+    p.add_argument("images", nargs="+", help="tif/npy z-stacks; same-shaped "
+                   "stacks are batched per dispatch")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out-dir", default=".",
+                   help="writes <stem>.recurrent.npy per input")
+    p.add_argument("--no-packed", action="store_true",
+                   help="bypass the serving forward: the model's plain float32 "
+                        "forward")
+    p.add_argument("--split-x", type=int, nargs="?", const=4, default=0,
+                   metavar="N",
+                   help="single-volume latency mode: run each volume as N "
+                        "(default 4) overlapping x-tiles batched on the "
+                        "leading axis with per-timestep halo exchange")
+    _add_device(p)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hcunet-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -139,6 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_preprocess(sub)
     _add_validate(sub)
     _add_study(sub)
+    _add_predict_recurrent(sub)
     return parser
 
 
@@ -158,6 +184,7 @@ def main(argv=None):
         "preprocess": _cmd_preprocess,
         "validate": _cmd_validate,
         "study": _cmd_study,
+        "predict-recurrent": _cmd_predict_recurrent,
     }
     return commands[args.cmd](args)
 
@@ -317,6 +344,54 @@ def _cmd_study(args):
             }
         )
     )
+    return 0
+
+
+def _cmd_predict_recurrent(args):
+    import numpy as np
+    import torch
+
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.data.transforms import integer_unit_scale
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.infer.pipeline import _load_volume
+    from hcunet_tpu_torch.utils.checkpoint import load_checkpoint, recurrent_model
+
+    config, variables, _ = load_checkpoint(args.checkpoint)
+    if not isinstance(config, (RUNetConfig, RDCNetConfig)):
+        raise SystemExit(f"not a recurrent checkpoint: {type(config).__name__}")
+    model = recurrent_model(config, variables, args.device)
+    if args.no_packed:
+        @torch.no_grad()
+        def apply_fn(batch):
+            return model(batch.to(args.device)).float()
+    else:
+        apply_fn = compile_recurrent_apply(
+            model, dtype=torch.bfloat16, device=args.device, split_x=args.split_x or 1
+        )
+
+    # same-shaped stacks go in one batched dispatch, unless --split-x asks
+    # for the single-volume mode, which splits only at B=1: then every
+    # volume goes alone
+    by_shape, vols = {}, {}
+    for k, path in enumerate(args.images):
+        vol = _load_volume(path)
+        if np.issubdtype(vol.dtype, np.integer):
+            vol = vol.astype(np.float32) / integer_unit_scale(vol.dtype)
+        vols[path] = ((vol - 0.5) / 0.5).astype(np.float32)
+        key = (vol.shape, k) if (args.split_x or 0) > 1 else vol.shape
+        by_shape.setdefault(key, []).append(path)
+    os.makedirs(args.out_dir, exist_ok=True)
+    outputs = {}
+    for paths in by_shape.values():
+        batch = torch.from_numpy(np.stack([vols[p] for p in paths]))
+        out = apply_fn(batch).cpu().numpy()
+        for i, p in enumerate(paths):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            dst = os.path.join(args.out_dir, stem + ".recurrent.npy")
+            np.save(dst, out[i])
+            outputs[p] = dst
+    print(json.dumps({"outputs": outputs}))
     return 0
 
 

@@ -97,6 +97,31 @@ class UNetConfig:
 
 
 @dataclass(frozen=True)
+class RUNetConfig:
+    """RecursiveUnet (``hcat/r_unet.py:38-160``): GRU-style recurrence over a
+    2-level same-padding U-Net, fixed timesteps."""
+
+    in_channels: int = 4
+    out_channels: int = 5
+    channels: Tuple[int, int, int] = (16, 32, 64)
+    kernel: Tuple[int, int, int] = (3, 3, 3)
+    upsample_kernel: Tuple[int, int, int] = (6, 6, 5)
+    max_pool_kernel: Tuple[int, int, int] = (2, 2, 1)
+    upsample_stride: Tuple[int, int, int] = (2, 2, 1)
+    timesteps: int = 10
+
+
+@dataclass(frozen=True)
+class RDCNetConfig:
+    """RDCNet (``hcat/r_unet.py:207-227``)."""
+
+    in_channels: int = 4
+    out_channels: int = 5
+    complexity: int = 10
+    timesteps: int = 10
+
+
+@dataclass(frozen=True)
 class DetectorConfig:
     """Faster R-CNN style detector (``hcat/rcnn.py:7-21`` contract)."""
 
@@ -198,13 +223,13 @@ class PipelineConfig:
 
 _CONFIG_TYPES = {
     "UNetConfig": UNetConfig,
+    "RUNetConfig": RUNetConfig,
+    "RDCNetConfig": RDCNetConfig,
     "DetectorConfig": DetectorConfig,
     "TileConfig": TileConfig,
     "WatershedConfig": WatershedConfig,
     "PipelineConfig": PipelineConfig,
 }
-# the JAX package's configs of model families the port has not ported yet
-_NOT_PORTED = {"RUNetConfig": "RecursiveUNet", "RDCNetConfig": "RDCNet"}
 
 
 def config_to_dict(cfg) -> Dict:
@@ -215,10 +240,6 @@ def config_to_dict(cfg) -> Dict:
 
 
 def _config_type(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: the {_NOT_PORTED[name]} family is not ported yet"
-        )
     if name not in _CONFIG_TYPES:
         raise ValueError(f"unknown config type {name!r}")
     return _CONFIG_TYPES[name]
@@ -239,8 +260,7 @@ def _rebuild(cls, d: Dict):
 
 
 def config_from_dict(d: Dict):
-    """Inverse of :func:`config_to_dict`; raises ``NotImplementedError`` for
-    a config type of a family the port has not ported."""
+    """Inverse of :func:`config_to_dict`."""
     if "__type__" not in d:
         raise ValueError("missing __type__ tag")
     d = json.loads(json.dumps(d))  # a deep copy; lists become tuples below

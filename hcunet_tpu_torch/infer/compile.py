@@ -22,7 +22,7 @@ matrix unit and is not carried over: only its contract is.
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +63,30 @@ def _folded_conv_params(conv, bn, groups: int, dtype, device) -> _Folded:
     )
 
 
+def subpixel_pads(kernel: Sequence[int], pad: Sequence[int] | int = 0):
+    """The input padding ``(px, py, pz)`` of the stacked parity conv that
+    computes a transposed conv of stride (2, 2, 1), kernel ``kernel`` and
+    torch padding ``pad``, or None where that route does not apply.
+
+    Parity ``r`` of output x ``2m + r`` sums ``x[m + o] w[t]`` over the taps
+    ``t = r + pad (mod 2)``, ``o = (r + pad - t) / 2``: for an even kernel
+    ``k`` and an even ``pad <= k - 2`` both parities take ``k / 2`` taps at
+    the offsets ``-(k/2 - 1 - pad/2) .. pad/2``, so one valid conv of the
+    input zero-padded by ``k/2 - 1 - pad/2`` on both sides gives every
+    output of both (the JAX package's ``_subpixel_taps`` rule, which also
+    asks the two sides to be equal; at ``pad = k/2 - 1`` they are, and its
+    taps are these).  z (stride 1) is the transposed conv's own valid conv
+    with the kernel flipped, padded by ``kz - 1 - pad``."""
+    kx, ky, kz = (int(k) for k in kernel)
+    px, py, pz = (pad,) * 3 if isinstance(pad, int) else (int(p) for p in pad)
+    for k, p in ((kx, px), (ky, py)):
+        if k % 2 or p % 2 or p > k - 2:
+            return None
+    if pz > kz - 1:
+        return None
+    return kx // 2 - 1 - px // 2, ky // 2 - 1 - py // 2, kz - 1 - pz
+
+
 def subpixel_tconv_weights(w_up: torch.Tensor) -> torch.Tensor:
     """The four parity kernels of a stride-(2, 2, 1) transposed conv with
     an even x/y kernel, stacked along Cout.
@@ -72,7 +96,8 @@ def subpixel_tconv_weights(w_up: torch.Tensor) -> torch.Tensor:
     ``w[ux, uy, uz, :, (2 rx + ry) * Cout + c] = w_up[kx-2-2ux+rx,
     ky-2-2uy+ry, kz-1-uz, :, c]``: the JAX package's
     ``pack_tconv_subpixel_weights`` (x/y parity taps, flipped, and z
-    flipped), with the parities side by side."""
+    flipped), with the parities side by side.  The taps do not depend on
+    the transposed conv's padding (:func:`subpixel_pads`)."""
     kx, ky = w_up.shape[0], w_up.shape[1]
     ux = torch.arange(kx // 2)
     uy = torch.arange(ky // 2)
@@ -89,18 +114,20 @@ def tconv_subpixel(
     w_sub: torch.Tensor,
     b_sub: torch.Tensor,
     conv: Callable = conv3d_valid,
+    pad: Sequence[int] | int = 0,
 ) -> torch.Tensor:
-    """A stride-(2, 2, 1) transposed conv as one valid conv and an
-    interleave: ``x`` ``[B, X, Y, Z, Cin]`` zero-padded by ``k/2 - 1`` in x
-    and y and ``kz - 1`` in z (one allocation), ``conv`` with the stacked
-    parity kernels ``w_sub`` (:func:`subpixel_tconv_weights`) and the bias
+    """A stride-(2, 2, 1) transposed conv with torch padding ``pad`` as one
+    valid conv and an interleave: ``x`` ``[B, X, Y, Z, Cin]`` zero-padded by
+    :func:`subpixel_pads` (one allocation), ``conv`` with the stacked parity
+    kernels ``w_sub`` (:func:`subpixel_tconv_weights`) and the bias
     repeated per parity ``b_sub`` (float32 ``[4 * Cout]``), then
     ``out[2m + rx, 2n + ry] = parity (rx, ry)[m, n]``.  Returns
-    ``[B, 2X + kx - 2, 2Y + ky - 2, Z + kz - 1, Cout]`` in ``x``'s dtype,
-    the transposed conv's output with its bias."""
+    ``[B, 2X + kx - 2 - 2 pad, 2Y + ky - 2 - 2 pad, Z + kz - 1 - 2 pad,
+    Cout]`` in ``x``'s dtype, the transposed conv's output with its bias.
+    ``pad`` must be one that :func:`subpixel_pads` takes."""
     hx, hy, kz = w_sub.shape[:3]
-    pad = (0, 0, kz - 1, kz - 1, hy - 1, hy - 1, hx - 1, hx - 1)
-    y = conv(F.pad(x, pad).contiguous(), w_sub, b_sub, False)
+    px, py, pz = subpixel_pads((2 * hx, 2 * hy, kz), pad)
+    y = conv(F.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous(), w_sub, b_sub, False)
     B, Xo, Yo, Zo, n = y.shape
     y = y.reshape(B, Xo, Yo, Zo, 2, 2, n // 4).permute(0, 1, 4, 2, 5, 3, 6)
     return y.reshape(B, 2 * Xo, 2 * Yo, Zo, n // 4)
@@ -153,10 +180,10 @@ def compile_serving_apply(
             _folded_conv_params(step.conv2, step.batch2, cfg.groups, dtype, dev),
         ]
 
-    use_subpixel = subpixel_tconv and (
-        tuple(cfg.upsample_stride[:2]) == (2, 2)
-        and cfg.upsample_kernel[0] % 2 == 0
-        and cfg.upsample_kernel[1] % 2 == 0
+    use_subpixel = (
+        subpixel_tconv
+        and tuple(cfg.upsample_stride[:2]) == (2, 2)
+        and subpixel_pads(cfg.upsample_kernel) is not None
     )
     downs = [block(step) for step in model.down_steps]
     ups = []

@@ -17,15 +17,17 @@ K1 in the forward, K1 again for the input gradient
 (:func:`conv3d_valid_input_grad`, a valid conv of the padded output
 gradient with the flipped kernel), and plain PyTorch (cuDNN's wgrad on
 CUDA) for the weight gradient, which the JAX package also left to XLA.
-Transpose convs and pooling are plain PyTorch, as the JAX package left them
-to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's
+The recurrent models' same-padding convs (:func:`conv_same`) are valid
+convs of a zero-padded input, so at stride 1 they run on K1 too.
+Transpose convs, strided convs and pooling are plain PyTorch, as the JAX
+package left them to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's
 semantics.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -341,6 +343,56 @@ def conv_valid(
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+def conv_same(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    stride: Sequence[int] | int = 1,
+    padding: Sequence[int] | int = 0,
+    dilation: Sequence[int] | int = 1,
+    relu: bool = False,
+    accum_dtype: torch.dtype = torch.float32,
+    conv: Callable = conv3d_valid,
+) -> torch.Tensor:
+    """3D convolution with explicit symmetric zero padding (torch
+    ``padding=p``), channels-last: the recurrent models' conv
+    (``hcat/r_unet.py``), twin of the JAX package's ``conv_same``.
+
+    ``x`` ``[B, X, Y, Z, Cin]``, ``w`` ``[kx, ky, kz, Cin, Cout]``, ``b``
+    ``[Cout]``.  At stride 1 the conv is a valid conv of ``x`` zero-padded
+    by ``padding`` on both sides of each spatial axis (``F.pad``: one
+    allocation and copy), run by ``conv`` (:func:`conv3d_valid`: K1 on
+    CUDA, its plain version on the CPU) with ``b`` in float32 and
+    ``relu`` in its epilogue; where a gradient is needed, ``b`` and the
+    ReLU follow it instead (K1's gradient path takes neither).  A larger
+    stride (RDCNet's input conv) is plain ``F.conv3d``, in ``x``'s dtype on
+    CUDA and float32 on the CPU, as the JAX package left that conv to XLA.
+    Returns ``accum_dtype``.
+    """
+    stride, padding, dilation = (_tuple(v, 3) for v in (stride, padding, dilation))
+    if any(s != 1 for s in stride):
+        work = torch.float32 if x.device.type == "cpu" else x.dtype
+        out = F.conv3d(
+            _to_channels_first(x.to(work)), w.to(work).permute(4, 3, 0, 1, 2),
+            stride=stride, padding=padding, dilation=dilation,
+        )
+        out = _to_channels_last(out).to(accum_dtype)
+    else:
+        px, py, pz = padding
+        xp = F.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous()
+        w = w.to(x.dtype).contiguous()
+        if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)
+        )):
+            bias = None if b is None else b.float().contiguous()
+            return conv(xp, w, bias, relu, dilation).to(accum_dtype)
+        out = conv(xp, w, None, False, dilation).to(accum_dtype)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return torch.relu(out) if relu else out
 
 
 def conv_transpose_torch(

@@ -27,7 +27,15 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 
 import hcunet_tpu_torch
-from hcunet_tpu_torch.config import DetectorConfig, UNetConfig, config_from_dict, config_to_dict
+from hcunet_tpu_torch.config import (
+    DetectorConfig,
+    RDCNetConfig,
+    RUNetConfig,
+    UNetConfig,
+    config_from_dict,
+    config_to_dict,
+    resolve_device,
+)
 from hcunet_tpu_torch.utils._flax_msgpack import msgpack_restore, to_bytes
 
 CKPT_SOURCES_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,7 +49,9 @@ def save_checkpoint(
     snapshot_sources: bool = True,
 ) -> None:
     """``variables``: the JAX-named tree with numpy leaves (for a UNet,
-    ``jax_variables_from_unet_state_dict`` of its state dict)."""
+    ``jax_variables_from_unet_state_dict`` of its state dict; for the
+    recurrent models ``jax_variables_from_runet_state_dict`` or
+    ``jax_variables_from_rdcnet_state_dict``)."""
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("variables.msgpack", to_bytes(variables))
         z.writestr("config.json", json.dumps(config_to_dict(config)))
@@ -105,12 +115,30 @@ def load_unet(path: str):
     return _unet(config, variables), variables, hyper
 
 
+def recurrent_model(config, variables: Mapping, device=None):
+    """A ``RecursiveUNet`` (for a ``RUNetConfig``) or an ``RDCNet`` (for an
+    ``RDCNetConfig``) holding the JAX-format ``variables``, float32 and in
+    eval mode, on ``device`` (CUDA unless given)."""
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.utils import port_jax
+
+    dev = resolve_device(device)
+    if isinstance(config, RUNetConfig):
+        model, sd = RecursiveUNet(config), port_jax.runet_state_dict_from_jax_variables(variables)
+    elif isinstance(config, RDCNetConfig):
+        model, sd = RDCNet(config), port_jax.rdcnet_state_dict_from_jax_variables(variables)
+    else:
+        raise ValueError(f"not a recurrent config: {type(config).__name__}")
+    model.load_state_dict(sd)
+    return model.to(dev).eval()
+
+
 def load_model(path: str, device=None):
-    """Generic loader: rebuilds the model family of the stored config
-    (UNet, on the CPU as :func:`load_unet` gives it; Detector, the
-    ResNet50-FPN, on ``device``, CUDA unless given) with its weights.  The
-    recurrent families (RUNetConfig, RDCNetConfig) are not ported yet and
-    raise ``NotImplementedError``.
+    """Generic loader: rebuilds the model family of the stored config with
+    its weights: UNet on the CPU, as :func:`load_unet` gives it; Detector
+    (the ResNet50-FPN), RecursiveUNet and RDCNet, float32 and in eval mode,
+    on ``device``, CUDA unless given.
 
     Returns ``(model, variables, hyperparameters)``."""
     cfg, variables, hyper = load_checkpoint(path)
@@ -125,4 +153,6 @@ def load_model(path: str, device=None):
         body = "small" if isinstance(det.backbone.body, SmallBackbone) else "resnet50"
         det.load_state_dict(detector_state_dict_from_jax_variables(variables, body))
         return det, variables, hyper
+    if isinstance(cfg, (RUNetConfig, RDCNetConfig)):
+        return recurrent_model(cfg, variables, device), variables, hyper
     raise ValueError(f"no model family for config type {type(cfg).__name__}")

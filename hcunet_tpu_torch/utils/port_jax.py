@@ -1,7 +1,8 @@
 """Carry weights between the JAX package's variable trees and the port.
 
 The JAX package keeps ``{"params", "batch_stats"}`` trees
-(``hcunet_tpu/models/unet.py``, ``models/detection.py``); the port keeps the
+(``hcunet_tpu/models/unet.py``, ``models/detection.py``, ``models/runet.py``,
+``models/rdcnet.py``); the port keeps the
 reference ``Unet_Constructor`` state dict and torchvision's
 ``fasterrcnn_resnet50_fpn`` names.  These are the port's own copy of the
 layout rules of ``hcunet_tpu/utils/port_torch.py``, on numpy arrays:
@@ -9,6 +10,11 @@ layout rules of ``hcunet_tpu/utils/port_torch.py``, on numpy arrays:
 * conv weight: JAX ``[*k, Cin/g, Cout]`` ↔ torch ``[Cout, Cin/g, *k]``;
 * transpose-conv weight: JAX ``[*k, Cin, Cout]`` ↔ torch ``[Cin, Cout, *k]``;
 * BatchNorm ``scale/bias/mean/var`` ↔ ``weight/bias/running_mean/running_var``.
+
+The recurrent family (``RecursiveUNet``, ``RDCNet``) keeps the reference
+``hcat/r_unet.py`` module names on the port's side, as
+``runet_variables_from_torch_state_dict`` and
+``rdcnet_variables_from_torch_state_dict`` of the JAX package read them.
 
 Optax's Adam moments have their parameters' layouts, so the optimizer
 state crosses with the same rules (:func:`torch_adam_state_from_optax`,
@@ -59,6 +65,44 @@ def _tconv_to_jax(t) -> np.ndarray:
     return np.transpose(w, tuple(range(2, 2 + nd)) + (0, 1))
 
 
+def _put_convbn(sd: Dict, prefix: str, p: Mapping, s: Mapping | None, layer: str) -> None:
+    """A block's two conv + BN pairs (``{layer}_0``/``{layer}_1`` in JAX)
+    into ``sd`` under ``prefix.conv1/batch1/conv2/batch2``; the running
+    statistics where ``s`` holds them."""
+    for j, (conv, bn) in enumerate(_PAIRS):
+        pj = p[f"{layer}_{j}"]
+        sd[f"{prefix}.{conv}.weight"] = _conv_to_torch(pj["kernel"])
+        sd[f"{prefix}.{conv}.bias"] = _t(pj["bias"])
+        sd[f"{prefix}.{bn}.weight"] = _t(pj["BatchNorm_0"]["scale"])
+        sd[f"{prefix}.{bn}.bias"] = _t(pj["BatchNorm_0"]["bias"])
+        if s is None:
+            continue
+        sj = s[f"{layer}_{j}"]
+        sd[f"{prefix}.{bn}.running_mean"] = _t(sj["BatchNorm_0"]["mean"])
+        sd[f"{prefix}.{bn}.running_var"] = _t(sj["BatchNorm_0"]["var"])
+        sd[f"{prefix}.{bn}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _get_convbn(sd: Mapping, prefix: str, p: Dict, s: Dict, layer: str, with_stats: bool) -> None:
+    """Inverse of :func:`_put_convbn`: fills the JAX trees ``p`` and ``s``."""
+    for j, (conv, bn) in enumerate(_PAIRS):
+        p[f"{layer}_{j}"] = {
+            "kernel": _conv_to_jax(sd[f"{prefix}.{conv}.weight"]),
+            "bias": _np(sd[f"{prefix}.{conv}.bias"]),
+            "BatchNorm_0": {
+                "scale": _np(sd[f"{prefix}.{bn}.weight"]),
+                "bias": _np(sd[f"{prefix}.{bn}.bias"]),
+            },
+        }
+        if with_stats:
+            s[f"{layer}_{j}"] = {
+                "BatchNorm_0": {
+                    "mean": _np(sd[f"{prefix}.{bn}.running_mean"]),
+                    "var": _np(sd[f"{prefix}.{bn}.running_var"]),
+                }
+            }
+
+
 def unet_state_dict_from_jax_variables(
     variables: Mapping, config: UNetConfig
 ) -> Dict[str, torch.Tensor]:
@@ -69,28 +113,14 @@ def unet_state_dict_from_jax_variables(
     params, stats = variables["params"], variables.get("batch_stats")
     n = len(config.feature_sizes)
     sd: Dict[str, torch.Tensor] = {}
-
-    def put_block(prefix: str, p: Mapping, s: Mapping | None):
-        for j, (conv, bn) in enumerate(_PAIRS):
-            pj = p[f"ConvBNRelu_{j}"]
-            sd[f"{prefix}.{conv}.weight"] = _conv_to_torch(pj["kernel"])
-            sd[f"{prefix}.{conv}.bias"] = _t(pj["bias"])
-            sd[f"{prefix}.{bn}.weight"] = _t(pj["BatchNorm_0"]["scale"])
-            sd[f"{prefix}.{bn}.bias"] = _t(pj["BatchNorm_0"]["bias"])
-            if s is None:
-                continue
-            sj = s[f"ConvBNRelu_{j}"]
-            sd[f"{prefix}.{bn}.running_mean"] = _t(sj["BatchNorm_0"]["mean"])
-            sd[f"{prefix}.{bn}.running_var"] = _t(sj["BatchNorm_0"]["var"])
-            sd[f"{prefix}.{bn}.num_batches_tracked"] = torch.tensor(0)
-
     for i in range(n):
-        put_block(f"down_steps.{i}", params[f"down{i}"], stats and stats[f"down{i}"])
+        _put_convbn(sd, f"down_steps.{i}", params[f"down{i}"], stats and stats[f"down{i}"],
+                    "ConvBNRelu")
     for i in range(n - 1):
         p = params[f"up{i}"]
         sd[f"up_steps.{i}.up_conv.weight"] = _tconv_to_torch(p["up_kernel"])
         sd[f"up_steps.{i}.up_conv.bias"] = _t(p["up_bias"])
-        put_block(f"up_steps.{i}", p, stats and stats[f"up{i}"])
+        _put_convbn(sd, f"up_steps.{i}", p, stats and stats[f"up{i}"], "ConvBNRelu")
     sd["out_conv.weight"] = _conv_to_torch(params["out_kernel"])
     sd["out_conv.bias"] = _t(params["out_bias"])
     return sd
@@ -105,40 +135,124 @@ def jax_variables_from_unet_state_dict(sd: Mapping, config: UNetConfig) -> Dict:
     params: Dict = {}
     stats: Dict = {}
     with_stats = "down_steps.0.batch1.running_mean" in sd
-
-    def get_block(prefix: str, p: Dict, s: Dict):
-        for j, (conv, bn) in enumerate(_PAIRS):
-            p[f"ConvBNRelu_{j}"] = {
-                "kernel": _conv_to_jax(sd[f"{prefix}.{conv}.weight"]),
-                "bias": _np(sd[f"{prefix}.{conv}.bias"]),
-                "BatchNorm_0": {
-                    "scale": _np(sd[f"{prefix}.{bn}.weight"]),
-                    "bias": _np(sd[f"{prefix}.{bn}.bias"]),
-                },
-            }
-            if with_stats:
-                s[f"ConvBNRelu_{j}"] = {
-                    "BatchNorm_0": {
-                        "mean": _np(sd[f"{prefix}.{bn}.running_mean"]),
-                        "var": _np(sd[f"{prefix}.{bn}.running_var"]),
-                    }
-                }
-
     for i in range(n):
         params[f"down{i}"], stats[f"down{i}"] = {}, {}
-        get_block(f"down_steps.{i}", params[f"down{i}"], stats[f"down{i}"])
+        _get_convbn(sd, f"down_steps.{i}", params[f"down{i}"], stats[f"down{i}"],
+                    "ConvBNRelu", with_stats)
     for i in range(n - 1):
         params[f"up{i}"] = {
             "up_kernel": _tconv_to_jax(sd[f"up_steps.{i}.up_conv.weight"]),
             "up_bias": _np(sd[f"up_steps.{i}.up_conv.bias"]),
         }
         stats[f"up{i}"] = {}
-        get_block(f"up_steps.{i}", params[f"up{i}"], stats[f"up{i}"])
+        _get_convbn(sd, f"up_steps.{i}", params[f"up{i}"], stats[f"up{i}"],
+                    "ConvBNRelu", with_stats)
     params["out_kernel"] = _conv_to_jax(sd["out_conv.weight"])
     params["out_bias"] = _np(sd["out_conv.bias"])
     if not with_stats:
         return {"params": params}
     return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# recurrent family
+# ---------------------------------------------------------------------------
+
+# JAX scope of each RecursiveUNet block (under the scanned "step") -> the
+# reference's module name (hcunet_tpu/utils/port_torch.py:186-205)
+_RUNET_BLOCKS = (
+    ("down1", "down1"),
+    ("fh/down_a", "down2_fh"), ("fh/down_b", "down3_fh"), ("fh/up", "up1_fh"),
+    ("fz/down_a", "down2_fz"), ("fz/down_b", "down3_fz"), ("fz/up", "up1_fz"),
+    ("up2", "up2"),
+)
+
+
+def _scope(tree: Mapping, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def runet_state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`hcunet_tpu_torch.models.runet.RecursiveUNet`
+    (the reference ``RecursiveUnet``'s names) from the JAX model's
+    ``{"params", "batch_stats"}`` tree, whose blocks sit under the scanned
+    ``step``."""
+    params = variables["params"]["step"]
+    stats = variables["batch_stats"]["step"]
+    sd: Dict[str, torch.Tensor] = {}
+    for scope, name in _RUNET_BLOCKS:
+        p = _scope(params, scope)
+        if "up_kernel" in p:
+            sd[f"{name}.up_conv.weight"] = _tconv_to_torch(p["up_kernel"])
+            sd[f"{name}.up_conv.bias"] = _t(p["up_bias"])
+        _put_convbn(sd, name, p, _scope(stats, scope), "SameConvBNRelu")
+    sd["out_conv.weight"] = _conv_to_torch(params["out_kernel"])
+    sd["out_conv.bias"] = _t(params["out_bias"])
+    return sd
+
+
+def jax_variables_from_runet_state_dict(sd: Mapping) -> Dict:
+    """Inverse of :func:`runet_state_dict_from_jax_variables`: the JAX
+    ``{"params": {"step": ...}, "batch_stats": {"step": ...}}`` tree as
+    numpy arrays (what the JAX package's
+    ``runet_variables_from_torch_state_dict`` gives for the same dict)."""
+    params: Dict = {"fh": {}, "fz": {}}
+    stats: Dict = {"fh": {}, "fz": {}}
+    for scope, name in _RUNET_BLOCKS:
+        *parent, leaf = scope.split("/")
+        p_parent = _scope(params, "/".join(parent)) if parent else params
+        s_parent = _scope(stats, "/".join(parent)) if parent else stats
+        p, s = {}, {}
+        if f"{name}.up_conv.weight" in sd:
+            p["up_kernel"] = _tconv_to_jax(sd[f"{name}.up_conv.weight"])
+            p["up_bias"] = _np(sd[f"{name}.up_conv.bias"])
+        _get_convbn(sd, name, p, s, "SameConvBNRelu", True)
+        p_parent[leaf], s_parent[leaf] = p, s
+    params["out_kernel"] = _conv_to_jax(sd["out_conv.weight"])
+    params["out_bias"] = _np(sd["out_conv.bias"])
+    return {"params": {"step": params}, "batch_stats": {"step": stats}}
+
+
+# JAX name of each RDCNet conv -> the reference's module name
+# (hcunet_tpu/utils/port_torch.py:208-285), (conv, transposed)
+_RDCNET_CONVS = (
+    (("in",), "strided_conv", False),
+    (("step", "rdc_block", "squeeze"), "RDCblock.conv", False),
+    *((("step", "rdc_block", "StackedDilation_0", f"conv{d}"), f"RDCblock.grouped_conv.conv{d}",
+       False) for d in range(1, 6)),
+    (("step", "rdc_block", "StackedDilation_0", "merge"), "RDCblock.grouped_conv.out_conv", False),
+    (("out",), "out_conv", False),
+    (("up",), "transposed_conv", True),
+)
+
+
+def rdcnet_state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`hcunet_tpu_torch.models.rdcnet.RDCNet` (the
+    reference ``RDCNet``'s names) from the JAX model's ``{"params"}``
+    tree."""
+    sd: Dict[str, torch.Tensor] = {}
+    for (*scope, leaf), name, transposed in _RDCNET_CONVS:
+        p = _scope(variables["params"], "/".join(scope)) if scope else variables["params"]
+        sd[f"{name}.weight"] = (_tconv_to_torch if transposed else _conv_to_torch)(
+            p[f"{leaf}_kernel"]
+        )
+        sd[f"{name}.bias"] = _t(p[f"{leaf}_bias"])
+    return sd
+
+
+def jax_variables_from_rdcnet_state_dict(sd: Mapping) -> Dict:
+    """Inverse of :func:`rdcnet_state_dict_from_jax_variables`: the JAX
+    ``{"params"}`` tree as numpy arrays."""
+    params: Dict = {}
+    for (*scope, leaf), name, transposed in _RDCNET_CONVS:
+        p = params
+        for part in scope:
+            p = p.setdefault(part, {})
+        p[f"{leaf}_kernel"] = (_tconv_to_jax if transposed else _conv_to_jax)(sd[f"{name}.weight"])
+        p[f"{leaf}_bias"] = _np(sd[f"{name}.bias"])
+    return {"params": params}
 
 
 # ---------------------------------------------------------------------------

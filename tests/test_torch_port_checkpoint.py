@@ -20,12 +20,14 @@ from hcunet_tpu.infer.serving import Segmenter as JaxSegmenter
 from hcunet_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from hcunet_tpu.train.trainer import UNetTrainer as JaxUNetTrainer
 from hcunet_tpu.utils import checkpoint as jckpt
-from hcunet_tpu_torch.config import TileConfig, config_to_dict
+from hcunet_tpu_torch.config import TileConfig, config_from_dict, config_to_dict
 from hcunet_tpu_torch.infer.serving import Segmenter
 from hcunet_tpu_torch.train.trainer import TrainConfig, UNetTrainer
 from hcunet_tpu_torch.utils import _flax_msgpack as codec
 from hcunet_tpu_torch.utils import checkpoint as tckpt
+from hcunet_tpu_torch.utils import port_jax
 from hcunet_tpu_torch.utils.port_jax import jax_variables_from_unet_state_dict
+from tests.test_torch_port_recurrent import jax_recurrent
 from tests.torch_port_support import (
     SMALL,
     SMALL_G2,
@@ -161,8 +163,10 @@ def test_port_checkpoint_loads_in_jax_and_back(tmp_path):
 
 
 def test_load_model_families(tmp_path):
-    """``load_model`` rebuilds the UNet; the recurrent families raise,
-    naming what is missing."""
+    """``load_model`` rebuilds the UNet, and the recurrent families from
+    JAX-written checkpoints: a ``RecursiveUNet`` and an ``RDCNet`` (on the
+    device asked for, in eval mode) whose forwards match the JAX model's
+    (atol 5e-5; RDCNet at 1e-5 of its output's scale)."""
     import hcunet_tpu.config as J
 
     cfg, _jm, variables = jax_unet(SMALL, (40, 40, 8))
@@ -170,12 +174,40 @@ def test_load_model_families(tmp_path):
     jckpt.save_checkpoint(path, variables, J.UNetConfig(**SMALL))
     model, _v, _h = tckpt.load_model(path)
     assert model.config == cfg
-    for rcfg, family in ((J.RUNetConfig(), "RecursiveUNet"), (J.RDCNetConfig(), "RDCNet")):
+    for family, spatial in (("runet", (16, 16, 5)), ("rdcnet", (16, 16, 10))):
+        _m, jmodel, rvars = jax_recurrent(family, spatial, timesteps=2)
         rpath = str(tmp_path / f"{family}.hcunet")
-        jckpt.save_checkpoint(rpath, {"params": {"w": np.zeros(2, np.float32)}}, rcfg,
-                              snapshot_sources=False)
-        with pytest.raises(NotImplementedError, match=family):
-            tckpt.load_model(rpath)
+        jckpt.save_checkpoint(rpath, rvars, jmodel.config, snapshot_sources=False)
+        rmodel, got_vars, _h = tckpt.load_model(rpath, device="cpu")
+        assert type(rmodel).__name__ == type(jmodel).__name__ and not rmodel.training
+        assert rmodel.config == config_from_dict(J.config_to_dict(jmodel.config))
+        _same_tree(got_vars, rvars)
+        x = np.random.default_rng(2).standard_normal((1, *spatial, 4)).astype(np.float32)
+        want = np.asarray(jmodel.apply(rvars, jnp.asarray(x), train=False))
+        with torch.no_grad():
+            got = rmodel(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=5e-5 if family == "runet" else 1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("family", ["runet", "rdcnet"])
+def test_recurrent_checkpoint_written_by_the_port_loads_in_jax(tmp_path, family):
+    """``save_checkpoint`` of a recurrent model's JAX-format variables
+    (``jax_variables_from_*_state_dict``) is read by the JAX
+    ``load_checkpoint`` to the same config and variables, bit for bit."""
+    import hcunet_tpu.config as J
+
+    spatial = (16, 16, 5) if family == "runet" else (16, 16, 10)
+    model, jmodel, variables = jax_recurrent(family, spatial, timesteps=3)
+    to_jax = {"runet": port_jax.jax_variables_from_runet_state_dict,
+              "rdcnet": port_jax.jax_variables_from_rdcnet_state_dict}[family]
+    path = str(tmp_path / f"{family}.hcunet")
+    tckpt.save_checkpoint(path, to_jax(model.state_dict()), model.config,
+                          hyperparameters={"epochs": 1}, snapshot_sources=False)
+    jcfg, jvars, jhyper = jckpt.load_checkpoint(path)
+    assert jcfg == jmodel.config and isinstance(jcfg, (J.RUNetConfig, J.RDCNetConfig))
+    assert jhyper == {"epochs": 1}
+    _same_tree(jax.tree.map(np.asarray, jvars), variables)
 
 
 def test_segmenter_from_checkpoint_matches_jax(tmp_path):

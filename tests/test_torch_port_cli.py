@@ -147,7 +147,7 @@ def _options(sub):
 
 
 # the JAX command line's subcommands whose back ends the port has not yet
-NOT_PORTED = ("train-rcnn", "train-recurrent", "predict-recurrent", "pretrain-backbone", "bench")
+NOT_PORTED = ("train-rcnn", "train-recurrent", "pretrain-backbone", "bench")
 
 
 def test_parsers_match_jax():
@@ -159,7 +159,7 @@ def test_parsers_match_jax():
         got, want = _options(sub), _options(jsubs[name])
         device = got.pop("device", None)
         assert got == want, name
-        if name in ("analyze", "batch", "train-unet", "validate"):
+        if name in ("analyze", "batch", "train-unet", "validate", "predict-recurrent"):
             assert device == (("--device",), "_StoreAction", "cuda", None, None, None, False, None)
         else:
             assert device is None, name

@@ -193,6 +193,108 @@ def test_conv3d_valid_subpixel_parity_convs_match_plain(cuda, case, dtype):
     assert err <= tol, (case, err, tol)
 
 
+# The recurrent family's same-padding convs (conv_same: a zero pad, then
+# K1), (x shape, w shape, padding, dilation) at small sizes: the
+# RecursiveUNet's first conv (Cin 9: the basic path), a 3x3x3 at Cin 32
+# (the ring path in bf16), its 1x1x1 out conv (Cout 5), RDCNet's squeeze
+# (Cin 20), its five dilated 5^3 convs (Cin 10) and its merge (Cin 50)
+SAME_CASES = [
+    ((1, 12, 10, 6, 9), (3, 3, 3, 9, 16), 1, 1),
+    ((2, 8, 9, 6, 32), (3, 3, 3, 32, 32), 1, 1),
+    ((1, 10, 9, 6, 16), (1, 1, 1, 16, 5), 0, 1),
+    ((1, 12, 11, 5, 20), (1, 1, 1, 20, 10), 0, 1),
+    *[((1, 12, 11, 5, 10), (5, 5, 5, 10, 10), 2 * d, d) for d in range(1, 6)],
+    ((1, 12, 11, 5, 50), (1, 1, 1, 50, 10), 0, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(SAME_CASES)))
+def test_conv_same_through_k1_matches_plain(cuda, case, dtype):
+    from hcunet_tpu_torch.ops.conv import conv_same
+
+    xs, ws, pad, dil = SAME_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal(ws, np.float32) / np.sqrt(np.prod(ws[:4])))
+    w = w.to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal(ws[-1:], np.float32)).to(cuda)
+    route = conv3d_valid_route(dtype, xs[-1], ws[-1])
+    before = dict(CONV3D_VALID.route_launches)
+    got = conv_same(x, w, b, padding=pad, dilation=dil, relu=True, accum_dtype=dtype)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in CONV3D_VALID.route_launches.items()} == {
+        r: int(r == route) for r in CONV3D_ROUTES}
+    want = conv_same(x, w, b, padding=pad, dilation=dil, relu=True, accum_dtype=dtype,
+                     conv=conv3d_valid_plain)
+    assert got.shape == want.shape == (*xs[:4], ws[-1]) and got.dtype == dtype
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (case, err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout", [(64, 32), (32, 16)], ids=["gate", "up2"])
+def test_recurrent_parity_conv_pad2_matches_plain(cuda, cin, cout, dtype):
+    """The RecursiveUNet's (6, 6, 5)/(2, 2, 1) transposed conv with padding 2
+    by the subpixel route: one K1 launch of the (3, 3, 5) stacked parity
+    kernels on x padded by (1, 1, 2), against the same route on the plain
+    conv."""
+    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights, tconv_subpixel
+
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 14, 10, cin), np.float32)).to(cuda, dtype)
+    w_up = torch.from_numpy(rng.standard_normal((6, 6, 5, cin, cout), np.float32))
+    w_sub = (subpixel_tconv_weights(w_up) / np.sqrt(9 * 5 * cin)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal(cout, np.float32)).to(cuda).repeat(4)
+    before = CONV3D_VALID.launches
+    got = tconv_subpixel(x, w_sub, b, pad=2)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID.launches == before + 1
+    want = tconv_subpixel(x, w_sub, b, conv3d_valid_plain, pad=2)
+    assert got.shape == want.shape == (2, 32, 28, 10, cout)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("family", ["runet", "rdcnet"])
+def test_recurrent_serving_launches_per_step(cuda, family):
+    """One step of each recurrent serving forward on the card: the
+    RecursiveUNet launches K1 20 times a timestep (in bf16 19 on the ring
+    path, the 9-channel first conv on the basic one), RDCNet 7 times an
+    iteration and once for its output conv, all on the basic path; and the
+    float32 K1 forward is within 1e-4 of the output's scale of the one built
+    on the plain conv (each conv differs by float32 summation order, and a
+    step chains 9 convs deep)."""
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+
+    torch.manual_seed(0)
+    if family == "runet":
+        model, spatial = RecursiveUNet(RUNetConfig(timesteps=1)).eval(), (32, 32, 6)
+        want_bf16 = {"basic": 1, "ring": 19}
+    else:
+        model, spatial = RDCNet(RDCNetConfig(timesteps=1)).eval(), (32, 32, 10)
+        want_bf16 = {"basic": 8, "ring": 0}
+    x = torch.randn((1, *spatial, 4), device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        apply = compile_recurrent_apply(model, dtype=dtype, device=cuda)
+        before = dict(CONV3D_VALID.route_launches)
+        got = apply(x)
+        torch.cuda.synchronize()
+        n = sum(want_bf16.values())
+        want_routes = want_bf16 if dtype == torch.bfloat16 else {"basic": n, "ring": 0}
+        assert {r: c - before[r] for r, c in CONV3D_VALID.route_launches.items()} == want_routes
+    plain = compile_recurrent_apply(model, dtype=torch.float32, device=cuda,
+                                    conv=conv3d_valid_plain)(x)
+    gap = float((got - plain).abs().max() / plain.abs().max())
+    assert gap <= 1e-4, gap
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("layer", range(len(TRAIN_LAYERS)))
 def test_conv3d_valid_input_grad_matches_plain(cuda, layer, dtype):

@@ -35,10 +35,12 @@ leaked = sorted(k for k in sys.modules
                 if k in ("jax", "msgpack", "optax", "hcunet_tpu")
                 or k.startswith(("jax.", "jaxlib", "flax", "msgpack.", "optax.", "hcunet_tpu.", "hcat")))
 print(len(names), leaked)
-assert len(names) >= 52, names
+assert len(names) >= 57, names
 for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "utils.checkpoint",
           "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms",
-          "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling"):
+          "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling",
+          "models.runet", "models.rdcnet", "infer.compile_recurrent", "infer.vector_cluster",
+          "ops.peaks"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -46,8 +48,9 @@ assert not leaked, leaked
 
 def test_port_imports_no_jax_or_jax_package():
     """Import every module of the port in a fresh interpreter (this one has
-    JAX loaded by conftest), the training slice's and the entry points'
-    (command line, facade, batch, validation, profiling) among them, and
+    JAX loaded by conftest), the training slice's, the entry points'
+    (command line, facade, batch, validation, profiling) and the recurrent
+    family's (models, serving forward, host clustering) among them, and
     check that neither JAX, flax, optax, msgpack nor the JAX package came
     with it."""
     proc = subprocess.run(
@@ -194,3 +197,31 @@ def test_host_watershed_backends_not_ported(no_cuda, backend):
     assert labels.dtype == seeds.dtype == np.int32
     with pytest.raises(ValueError, match="unknown watershed backend"):
         generate_unique_segmentation_mask(mask, _CAND, WatershedConfig(backend="other"))
+
+
+@pytest.mark.parametrize("entry", ["compile_recurrent_apply", "compile_rdcnet_apply",
+                                   "recurrent_model"])
+def test_recurrent_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.infer.compile_recurrent import (
+        compile_rdcnet_apply,
+        compile_recurrent_apply,
+    )
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.utils.checkpoint import recurrent_model
+    from hcunet_tpu_torch.utils.port_jax import jax_variables_from_runet_state_dict
+
+    runet = RecursiveUNet(RUNetConfig(timesteps=1)).eval()
+    calls = {
+        "compile_recurrent_apply": lambda **kw: compile_recurrent_apply(runet, **kw),
+        "compile_rdcnet_apply": lambda **kw: compile_rdcnet_apply(
+            RDCNet(RDCNetConfig(timesteps=1)).eval(), **kw),
+        "recurrent_model": lambda **kw: recurrent_model(
+            runet.config, jax_variables_from_runet_state_dict(runet.state_dict()), **kw),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry](device="cuda")
+    calls[entry](device="cpu")  # the CPU only when asked for
