@@ -9,9 +9,9 @@ toolkit::
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
 ``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
-(9), ``train`` (10), ``slice3`` (11), ``cli`` (12) and ``recurrent``
-(13); phases 1, 2 (only the kernels the chosen phases launch) and 14
-always run.  A run of fewer
+(9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
+``rtrain`` (14) and ``dtrain`` (15); phases 1, 2 (only the kernels the
+chosen phases launch) and 16 always run.  A run of fewer
 than all phases reports no launch counts (they are the whole main path's)
 and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
@@ -91,8 +91,8 @@ Phases (any failure exits non-zero):
    (K1 0 launches, the same cells), a float32-transfer run without overlap
    under ``torch.profiler`` on the timed run's first chunk alone, whose
    mask the uint16 run's must match there within one half quantum, and the
-   ``"fused"`` and ``"materialized"`` backends on that chunk's map, which
-   must give equal labels; on the fitted weights of phase 10 where it ran
+   ``"fused"`` and ``"materialized"`` backends on the first quarter of
+   that chunk's map, which must give equal labels; on the fitted weights of phase 10 where it ran
    (as the JAX bench does), else on the random ones;
 12. the user entry points on the fitted weights of phase 10 where it ran,
     else the seeded ones, saved as a checkpoint beside the detector of
@@ -101,9 +101,11 @@ Phases (any failure exits non-zero):
     384 x 12 pipeline scene in ``.npy``, whose ``cells.csv`` must equal a
     direct ``analyze`` call's, K1 15 launches per tile batch on the basic
     path, and once more under ``torch.profiler`` with cuDNN free to pick
-    its algorithms; ``validate`` and ``train-unet`` (1 epoch, crop 128 x
+    its algorithms (fault F4: its map and cells, and those of the command
+    at torch's TF32 defaults and of ``analyze()`` itself at them, against
+    the checked run's); ``validate`` and ``train-unet`` (1 epoch, crop 128 x
     128 x 12) on a 2-sample
-    ``.npy`` Stack; ``run_batch`` over two ``.npy`` scenes with the command
+    ``.npy`` Stack; ``run_batch`` over a ``.npy`` scene with the command
     line's model loading, a second pass all cached; the ``hcat`` facade's
     ``analyze``, whose cells must equal the command line's;
 13. the recurrent family's serving (``recurrent_phase``) at full width on
@@ -120,12 +122,36 @@ Phases (any failure exits non-zero):
     plain conv, bf16 within 4 % of the model's own eval forward;
     ``predict-recurrent`` through ``cli.main`` (batched and ``--split-x 4``)
     equal to ``compile_recurrent_apply``; one forward under the profiler;
-14. print one JSON line of kernel rows (``launches``: the count over the
+14. the recurrent family's training (``rtrain_phase``) at full width:
+    ``RecurrentTrainer`` on ``RUNetConfig()`` and ``RDCNetConfig()`` in
+    float32 and bf16, 20 steps each on a synthetic 128 x 128 x 10 sample
+    (train-recurrent's default crop) with the port's targets, the loss
+    falling, ms a step, the peak memory and K1's launches by path each
+    step (RecursiveUNet 170 forward, 169 input-gradient; RDCNet 71 and
+    71); 3 K1 steps against 3 on the plain conv within the gaps of
+    jittered plain runs; K1's input gradient at every shape of a training
+    step (5^3 at dilations 1-5, Cin 9-64) against its plain version, timed
+    beside cuDNN's dgrad of the padded conv and the bound; fault F4's TF32
+    gap of the first losses; the trained gate of
+    ``tests/test_recurrent_trained_gate.py`` (RDCNet, 300 steps, at least
+    half the cells matched at IoU >= 0.5); ``train-recurrent`` and
+    ``predict-recurrent`` through ``cli.main``;
+15. the detector's training (``dtrain_phase``) at full width: the
+    ResNet50-FPN ``Detector`` (width 64, float32, 5 classes) on synthetic
+    512 x 512 sections of 20-60 boxes: the first step's loss terms,
+    running statistics and gradients on the card against the CPU's;
+    fault F4's TF32 gap; ``DetectionTrainer`` at B=1 (20 steps, the loss
+    falling) and B=4; ``evaluate_detections`` on its detections;
+    ``pretrain_backbone`` (width 64, 100 steps) and
+    ``seed_detector_backbone``; ``train-rcnn`` and ``pretrain-backbone``
+    through ``cli.main``, and the detector checkpoint through ``analyze
+    --detector``;
+16. print one JSON line of kernel rows (``launches``: the count over the
     paths, slices 1-3, the subpixel request, training, the command
-    line's ``analyze`` and the recurrent forwards, with
-    ``launches_by_path`` beside it;
-    K1's input-gradient rows count the training path's input-gradient
-    launches), the card line, and the result line.
+    line's ``analyze``, the recurrent forwards and the recurrent fits,
+    with ``launches_by_path`` beside it; K1's input-gradient rows count
+    the two training paths' input-gradient launches), the card line, and
+    the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
@@ -154,6 +180,9 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores (TF32 is off)
 H100_F64_FLOPS = 34e12    # float64 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
+# torch's TF32 settings as it starts, (cudnn.allow_tf32, cuda.matmul.allow_tf32):
+# what a user's float32 run gets (fault F4 compares them with TF32 off)
+TORCH_TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 SEED = 0
 REQUESTS = [(1152, 1152, 15), (1000, 900, 15), (2304, 2304, 15)]
 BENCH_SCENE = (2304, 2304, 15)
@@ -1058,10 +1087,13 @@ def analyze_phase(model, dev, kernels) -> dict:
         if n_bad > n_near or (n_near and reproducible):
             raise AssertionError("the uint16 transfer's mask differs from the float32 run's")
 
-        # "fused" == "materialized" on one chunk's map; the two floods run
-        # at once (each releases the GIL)
-        prob = np.ascontiguousarray(res32.mask)
-        cand = predict_cell_candidates(x[0][..., list(cfg.detection_channels)], det, device=dev)
+        # "fused" == "materialized" on the first quarter of that chunk's map
+        # (a cut of depth for the time limit, PERF.md section 4); the two
+        # floods run at once (each releases the GIL)
+        qx, qy = chunk[0] // 2, chunk[1] // 2
+        prob = np.ascontiguousarray(res32.mask[:qx, :qy])
+        cand = predict_cell_candidates(x[0][:qx, :qy][..., list(cfg.detection_channels)], det,
+                                       device=dev)
 
         def flood(backend):
             t = time.perf_counter()
@@ -1073,7 +1105,8 @@ def analyze_phase(model, dev, kernels) -> dict:
         with ThreadPoolExecutor(max_workers=2) as pool:
             (fused, fused_s), (mat, mat_s) = pool.map(flood, ("fused", "materialized"))
         equal = np.array_equal(fused, mat)
-        print(f"chunk_1_1 {prob.shape}, {len(cand['scores'])} candidates: fused {fused_s:.3f} s, "
+        print(f"chunk_1_1's first quarter {prob.shape}, {len(cand['scores'])} candidates: "
+              f"fused {fused_s:.3f} s, "
               f"materialized {mat_s:.3f} s (at once), {len(np.unique(fused)) - 1} labels, "
               f"equal: {equal}", flush=True)
         if not equal:
@@ -1210,8 +1243,9 @@ JITTER = 2.0**-22
 
 @contextlib.contextmanager
 def plain_conv(jitter=None):
-    """The U-Net's valid convs on the plain version, their gradient by plain
-    autograd (cuDNN), for the parity runs: no K1 launch.  ``jitter``: a
+    """The valid convs (the U-Net's, and the recurrent family's same-padding
+    convs through ``conv_same``) on the plain version, their gradient by
+    plain autograd (cuDNN), for the parity runs: no K1 launch.  ``jitter``: a
     ``torch.Generator`` on the card; each conv's float32 sum is then
     multiplied by ``1 + JITTER u`` (u uniform in [-1, 1], per element)
     before the cast to the working dtype, as another summation order would
@@ -1227,11 +1261,15 @@ def plain_conv(jitter=None):
         u = torch.rand(y.shape, generator=jitter, device=y.device) * 2 - 1
         return (y * (1 + JITTER * u)).to(x.dtype)
 
+    # conv_same binds its conv as a default at definition: swap that too
+    same_kernel = conv_mod.conv_same.__kwdefaults__["conv"]
     conv_mod.conv3d_valid = plain
+    conv_mod.conv_same.__kwdefaults__["conv"] = plain
     try:
         yield
     finally:
         conv_mod.conv3d_valid = kernel
+        conv_mod.conv_same.__kwdefaults__["conv"] = same_kernel
 
 
 @contextlib.contextmanager
@@ -1273,7 +1311,7 @@ GAP_FLOOR = {torch.float32: {"loss": 1e-6, "grad": 1e-5, "share": 1e-3, "stats":
              torch.bfloat16: {"loss": 1e-3, "grad": 1e-3, "stats": 1e-3}}
 
 
-def run_gaps(run_a, run_b, start) -> dict:
+def run_gaps(run_a, run_b, start, lr=FIT_LR) -> dict:
     """``{kind: (largest gap, tensor)}`` between two runs of
     ``PARITY_STEPS`` steps from the variables ``start`` (``run_*``: the
     variables after the steps, the losses, the step-1 gradients, as JAX
@@ -1286,14 +1324,14 @@ def run_gaps(run_a, run_b, start) -> dict:
     var_b, losses_b, g_b = run_b
     out = {"loss": (max(abs(a - b) / abs(b) for a, b in zip(losses_a, losses_b)), None)}
     per = {("grad", p): v for p, v in gradient_gaps(g_a, g_b).items()}
-    per.update(trajectory_gaps(var_a, var_b, start, FIT_LR, PARITY_STEPS))
+    per.update(trajectory_gaps(var_a, var_b, start, lr, PARITY_STEPS))
     for (kind, path), v in per.items():
         if v >= out.get(kind, (-1.0, None))[0]:
             out[kind] = (v, "/".join(path))
     return out
 
 
-def trajectory_gap(kernel, plain, jittered, start, dtype) -> str:
+def trajectory_gap(kernel, plain, jittered, start, dtype, lr=FIT_LR) -> str:
     """The kernel run against the plain run, held by the gaps that
     rounding-sized jitters of the plain run's convs open (``run_gaps`` of
     each jittered run against the plain one): for each kind of gap, the
@@ -1307,11 +1345,14 @@ def trajectory_gap(kernel, plain, jittered, start, dtype) -> str:
     gradient's average, so a parameter whose gradient is near 0 can move a
     whole step of lr apart in two runs.  The tight gate on K1 is the input
     gradient's check at each layer (``check_input_grad``)."""
-    got = run_gaps(kernel, plain, start)
-    noise = [run_gaps(j, plain, start) for j in jittered]
+    got = run_gaps(kernel, plain, start, lr)
+    noise = [run_gaps(j, plain, start, lr) for j in jittered]
     factor, floor = JITTER_FACTOR[dtype], GAP_FLOOR[dtype]
     parts, bad = [], []
     for kind in floor:
+        if kind not in got:  # no tensor of that kind (RDCNet keeps no running statistics)
+            parts.append(f"no {kind} gap")
+            continue
         g, where = got[kind]
         n = max(r[kind][0] for r in noise)
         allowed = factor * n + floor[kind]
@@ -1325,9 +1366,14 @@ def trajectory_gap(kernel, plain, jittered, start, dtype) -> str:
     return line
 
 
-def check_input_grad(name, gy, w, dilation) -> dict:
+def check_input_grad(name, gy, w, dilation, pad=None) -> dict:
     """K1's input gradient against its plain version on one output gradient
-    ``gy`` (``w`` in its dtype); returns a row."""
+    ``gy`` (``w`` in its dtype); returns a row.  ``pad``: for a same-padding
+    conv (``conv_same``), the zero padding its input took; the input
+    gradient is then wanted on the unpadded input only, so the library time
+    is cuDNN's dgrad of the padded conv and the bound counts the unpadded
+    input's bytes and only the (voxel, tap) pairs inside it
+    (``in_range_taps``), as the same-pad forward's row does."""
     from hcunet_tpu_torch.ops.conv import (
         CONV3D_VALID_INPUT_GRAD,
         conv3d_valid_input_grad,
@@ -1346,17 +1392,21 @@ def check_input_grad(name, gy, w, dilation) -> dict:
     want = conv3d_valid_input_grad_plain(gy, w, dilation)
     torch.cuda.synchronize()
     err, tol = kernel_error(got, want)
-    in_size = (gy.shape[0], cin, *got.shape[1:4])
+    pads = (0, 0, 0) if pad is None else tuple(pad)
+    in_size = (gy.shape[0], cin, *(n - 2 * p for n, p in zip(got.shape[1:4], pads)))
     del got, want
 
     gy_cf = gy.permute(0, 4, 1, 2, 3)
     w_cf = w.permute(4, 3, 0, 1, 2)
     kernel_ms = cuda_ms(lambda: conv3d_valid_input_grad(gy, w, dilation))
     plain_ms = cuda_ms(lambda: conv3d_valid_input_grad_plain(gy, w, dilation))
-    library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(in_size, w_cf, gy_cf, dilation=dilation))
-    out_vox = gy.numel() // cout
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(
+        in_size, w_cf, gy_cf, dilation=dilation, padding=pads))
     es = gy.element_size()
-    flops = 2.0 * out_vox * kx * ky * kz * cin * cout
+    dils = (dilation,) * 3 if isinstance(dilation, int) else tuple(dilation)
+    taps = math.prod(in_range_taps(n, p, k, d)
+                     for n, p, k, d in zip(in_size[2:], pads, (kx, ky, kz), dils))
+    flops = 2.0 * gy.shape[0] * taps * cin * cout
     nbytes = (gy.numel() + w.numel() + math.prod(in_size)) * es
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
@@ -1366,7 +1416,10 @@ def check_input_grad(name, gy, w, dilation) -> dict:
         "route": "cuda",
         "k1_route": k1_route,
         "source": "hcunet_tpu_torch/csrc/conv3d_valid.cu",
-        "replaces": "hcunet_tpu/ops/conv.py:90 (XLA's input gradient of lax.conv_general_dilated; no Pallas kernel)",
+        "replaces": ("hcunet_tpu/ops/conv.py:90 (XLA's input gradient of lax.conv_general_dilated; "
+                     "no Pallas kernel)" if pad is None else
+                     "hcunet_tpu/ops/conv.py:105 (conv_same: XLA's input gradient of its padded "
+                     "lax.conv_general_dilated; no Pallas kernel)"),
         "launches": None,
         "max_abs_err": err,
         "ms": kernel_ms,
@@ -1759,14 +1812,36 @@ def cli_main(argv) -> object:
     raise AssertionError(f"hcunet-torch {' '.join(argv)} printed no JSON: {out!r}")
 
 
+@contextlib.contextmanager
+def capture_analyze(results, label):
+    """Keep, under ``results[label]``, the ``AnalyzeResult`` of the
+    ``analyze`` call the command line makes in the block."""
+    import hcunet_tpu_torch.infer.pipeline as pipeline
+
+    inner = pipeline.analyze
+
+    def keep(*args, **kwargs):
+        results[label] = inner(*args, **kwargs)
+        return results[label]
+
+    pipeline.analyze = keep
+    try:
+        yield
+    finally:
+        pipeline.analyze = inner
+
+
 def cli_phase(model, dev, kernel) -> int:
     """The user entry points on the card: the command line's ``analyze``
     (float32, as it serves a checkpoint) on a ``CLI_SCENE`` pipeline scene
     against a direct ``analyze()`` on the same models, ``validate`` and
-    ``train-unet`` on a 2-sample ``.npy`` Stack, ``run_batch`` over two
-    ``.npy`` scenes with the command line's model loading (a second pass
+    ``train-unet`` on a 2-sample ``.npy`` Stack, ``run_batch`` over one
+    ``.npy`` scene with the command line's model loading (a second pass
     all cached), and the ``hcat`` facade's ``analyze`` against the command
-    line's cells.  Returns K1's launches on the command line's ``analyze``
+    line's cells; fault F4: the command line's map and cells with
+    ``cudnn.deterministic`` off and at torch's TF32 defaults (which
+    ``cli.main`` turns off), and ``analyze()``'s at those defaults, against
+    the checked run.  Returns K1's launches on the command line's ``analyze``
     (the path, with the counts set to 0 just before it), all on the basic
     path (float32)."""
     from hcunet_tpu_torch import PipelineConfig, analyze, compat
@@ -1829,15 +1904,43 @@ def cli_phase(model, dev, kernel) -> int:
         # the command as a user runs it (cuDNN free to pick its algorithms),
         # under the profiler
         torch.backends.cudnn.deterministic = False
-        profile_device(
-            "cli analyze (cudnn.deterministic off)",
-            lambda: cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
-                              "--numchunks", "2", "--no-cochlea",
-                              "--out", os.path.join(root, "cli_profiled")]),
-            {"K1": "conv3d_valid", "conv_transpose3d (cuDNN dgrad)": "dgrad"},
-        )
-        torch.backends.cudnn.deterministic = True
+        maps = {}
+        with capture_analyze(maps, "deterministic off"):
+            profile_device(
+                "cli analyze (cudnn.deterministic off)",
+                lambda: cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
+                                  "--numchunks", "2", "--no-cochlea",
+                                  "--out", os.path.join(root, "cli_profiled")]),
+                {"K1": "conv3d_valid", "conv_transpose3d (cuDNN dgrad)": "dgrad"},
+            )
         marks.append(("cli analyze, profiled", time.perf_counter()))
+        # fault F4: that run, the command line at torch's TF32 defaults, and
+        # analyze() itself at those defaults, against the checked run
+        with tf32(True), capture_analyze(maps, "TF32 at torch's defaults"):
+            cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
+                      "--numchunks", "2", "--no-cochlea", "--out", os.path.join(root, "cli_tf32")])
+        with tf32(True):
+            maps["analyze() at torch's TF32 defaults"] = analyze(
+                volume=vol, unet_apply=apply, detector=detector,
+                cfg=PipelineConfig(numchunks=2, unet=umodel.config),
+                work_dir=os.path.join(root, "direct_tf32"), fit_cochlea=False, device=dev)
+        outs = {"deterministic off": "cli_profiled", "TF32 at torch's defaults": "cli_tf32",
+                "analyze() at torch's TF32 defaults": "direct_tf32"}
+        for label, result in maps.items():
+            with open(os.path.join(root, outs[label], "cells.csv"), "rb") as f:
+                same_csv = f.read() == cli_csv
+            dp = float(np.abs(result.mask.astype(np.float64) - direct.mask).max())
+            print(f"F4 {label} (float32): max |dp| {dp:.3e} against the checked run "
+                  f"(deterministic, TF32 off); cells {len(result.cells)} against "
+                  f"{len(direct.cells)}; cells.csv byte-equal: {same_csv}", flush=True)
+            # the command line pins TF32 off (cli.pin_float32): a user's
+            # float32 analyze keeps the float32 request's gate and its cells
+            if not label.startswith("analyze()") and (
+                    dp > 1e-4 or len(result.cells) != len(direct.cells)):
+                raise AssertionError(f"F4: the command line's {label} run parts from the "
+                                     f"checked run")
+        torch.backends.cudnn.deterministic = True
+        marks.append(("F4", time.perf_counter()))
 
         summary = cli_main(["validate", stack, "--unet", unet_path])
         print(f"cli validate: {summary}", flush=True)
@@ -1856,10 +1959,11 @@ def cli_phase(model, dev, kernel) -> int:
             raise AssertionError("train-unet wrote a bad checkpoint")
         marks.append(("cli train-unet", time.perf_counter()))
 
+        # run_batch over one scene (a cut of depth for the time limit), then
+        # again, all cached
         batch_root = os.path.join(root, "batch")
         os.makedirs(batch_root)
-        for i in range(2):
-            shutil.copy(os.path.join(stack, f"s{i}.npy"), os.path.join(batch_root, f"s{i}.npy"))
+        shutil.copy(os.path.join(stack, "s0.npy"), os.path.join(batch_root, "s0.npy"))
 
         def one(img, out_dir):
             analyze(img, unet_apply=apply, detector=detector,
@@ -1868,9 +1972,9 @@ def cli_phase(model, dev, kernel) -> int:
 
         first = run_batch(batch_root, one, pattern="**/*.npy")
         again = run_batch(batch_root, one, pattern="**/*.npy")
-        print(f"run_batch over 2 .npy scenes: {[(os.path.basename(r['image']), r['state']) for r in first]}; "
+        print(f"run_batch over a .npy scene: {[(os.path.basename(r['image']), r['state']) for r in first]}; "
               f"again: cached {[r.get('cached') for r in again]}", flush=True)
-        if [r["state"] for r in first] != ["done", "done"] or [r.get("cached") for r in again] != [True, True]:
+        if [r["state"] for r in first] != ["done"] or [r.get("cached") for r in again] != [True]:
             raise AssertionError("run_batch did not analyze both scenes, or reran one")
         with open(os.path.join(batch_root, "s0_cellBycell", "cells.csv"), "rb") as f:
             if f.read() != cli_csv:
@@ -2256,6 +2360,869 @@ def recurrent_phase(dev, kernel) -> tuple:
     return rows, launches
 
 
+# the recurrent training phase: train-recurrent's default --crop and --lr
+RTRAIN_CROP = (128, 128, 10)
+# the stacks train-recurrent reads: larger than its crop, so that the
+# recipe's nul_crop (which drops rows and columns without a cell) leaves it
+# room
+RTRAIN_STACK = (160, 160, 10)
+RTRAIN_STEPS = 20
+RTRAIN_LR = 1e-3
+# the trained gate of tests/test_recurrent_trained_gate.py on its scene,
+# at twice its 150 Adam steps (at 150 the vector field can still merge
+# cells; PERF.md), a cell matched at IoU >= GATE_IOU
+GATE_SCENE = (64, 64, 8)
+GATE_STEPS = 300
+GATE_IOU = 0.5
+
+
+def recurrent_scene(shape, seed) -> dict:
+    """A RecursiveStack sample of ``shape`` [X, Y, Z]: blob cells on a
+    jittered grid of pitch 10 (rows of cells, as hair cells sit; every row
+    and column of the plane meets one), each a color in an instance mask,
+    and the targets the port's
+    ``train/targets.py`` builds from it (the pwl map, the center map and the
+    pixel-to-center vectors), as ``preprocess`` builds them.  Returns the
+    on-disk arrays ([Z, Y, X, ...]: ``image`` uint16, ``mask`` uint8 0/255,
+    ``pwl``, ``com`` uint16, ``vec``) and the training batch
+    ``(image, mask, pwl, com, vec)`` [1, X, Y, Z, C], normalized as the
+    command line's recipe leaves it."""
+    from hcunet_tpu_torch.train.targets import center_of_mass_target, make_pwl, vector_to_center
+
+    X, Y, Z = shape
+    rng = np.random.default_rng(seed)
+    xx, yy, zz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z), indexing="ij")
+    labels = np.zeros(shape, np.int32)
+    best = np.full(shape, np.inf)
+    grid = [(gx, gy) for gx in range(6, X - 4, 10) for gy in range(6, Y - 4, 10)]
+    for i, (gx, gy) in enumerate(grid):
+        c = (gx + rng.uniform(-1.5, 1.5), gy + rng.uniform(-1.5, 1.5), rng.uniform(1, Z - 1))
+        r = rng.uniform(5.5, 7.5)
+        d2 = (xx - c[0]) ** 2 + (yy - c[1]) ** 2 + ((zz - c[2]) * 2.5) ** 2
+        hit = (d2 < r * r) & (d2 < best)
+        labels[hit] = i + 1
+        best = np.where(hit, d2, best)
+    zyx = labels.transpose(2, 1, 0)
+    color = np.zeros((*zyx.shape, 3), np.uint8)  # background black, one color a cell
+    for i in range(1, len(grid) + 1):
+        color[zyx == i] = (i % 251 + 1, i // 251 + 1, (7 * i) % 253 + 1)
+    pwl = make_pwl(color).astype(np.float32)
+    centers, cell_labels = center_of_mass_target(color)
+    vec = vector_to_center(centers, cell_labels).astype(np.float32)
+    glow = np.exp(-np.minimum(best, 400.0) / (2 * 6.0**2))
+    img = np.stack([np.clip(glow * s + rng.normal(0, 0.02, shape), 0, 1)
+                    for s in (0.9, 1.0, 0.95, 0.9)], axis=-1).astype(np.float32)
+    mask = (labels > 0).astype(np.float32)
+    batch = (
+        ((img - 0.5) / 0.5)[None],
+        mask[None, ..., None],
+        pwl.transpose(2, 1, 0)[None, ..., None],
+        centers.transpose(2, 1, 0).astype(np.float32)[None, ..., None],
+        vec.transpose(2, 1, 0, 3)[None],
+    )
+    disk = {
+        "image": np.ascontiguousarray((img * 65535).astype(np.uint16).transpose(2, 1, 0, 3)),
+        "mask": np.ascontiguousarray(np.where(zyx > 0, 255, 0).astype(np.uint8)),
+        "pwl": pwl,
+        "com": centers.astype(np.uint16),
+        "vec": vec,
+    }
+    return {"batch": batch, "disk": disk, "labels": labels}
+
+
+def write_recursive_stack(root, name, scene) -> None:
+    """``scene``'s on-disk arrays as a RecursiveStack sample: ``<name>.npy``,
+    ``.mask.npy``, ``.pwl.npy``, ``.labels.com.tif`` and
+    ``.labels.vector.pkl``."""
+    import pickle
+
+    from hcunet_tpu_torch.data.tiff import imwrite
+
+    disk = scene["disk"]
+    stem = os.path.join(root, name)
+    np.save(f"{stem}.npy", disk["image"])
+    np.save(f"{stem}.mask.npy", disk["mask"])
+    np.save(f"{stem}.pwl.npy", disk["pwl"])
+    imwrite(f"{stem}.labels.com.tif", disk["com"])
+    with open(f"{stem}.labels.vector.pkl", "wb") as f:
+        pickle.dump(disk["vec"], f)
+
+
+def recurrent_model(family, dtype=torch.float32, seed=SEED):
+    """``RUNetConfig()`` or ``RDCNetConfig()`` at full width with the JAX
+    initializers' distributions (truncated He-normal kernels, zero biases)
+    drawn from ``seed``, as ``train-recurrent`` starts it."""
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.models.unet import init_like_flax
+
+    model = RecursiveUNet(RUNetConfig()) if family == "runet" else RDCNet(RDCNetConfig())
+    init_like_flax(model, torch.Generator().manual_seed(seed))
+    model.dtype = dtype
+    return model
+
+
+def rtrain_step_launches(family, timesteps, dtype) -> tuple:
+    """K1's launches by path in one training step: the forward's, and the
+    input gradients'.  A RecursiveUNet timestep runs 17 same-padding convs
+    (its transposed convs are cuDNN's), 16 of them on the ring path in bf16
+    (all but the 9-channel first conv); their input gradients take the ring
+    path where Cout % 8 == 0 (all but out_conv's, Cout 5), and the first
+    conv of timestep 0 needs none (the image and the zero state).  An RDCNet
+    iteration runs 7 (the squeeze, 5 dilations, the merge) and its output
+    conv one more, all Cout 10: the basic path, forward and backward."""
+    bf16 = dtype == torch.bfloat16
+    T = timesteps
+    if family == "runet":
+        ring = 16 * T if bf16 else 0
+        ring_g = 16 * T - 1 if bf16 else 0
+        return ({"basic": 17 * T - ring, "ring": ring},
+                {"basic": 17 * T - 1 - ring_g, "ring": ring_g})
+    n = 7 * T + 1
+    return {"basic": n, "ring": 0}, {"basic": n, "ring": 0}
+
+
+def rtrain_trainer(model, dev, lr=RTRAIN_LR):
+    from hcunet_tpu_torch.train.trainer import RecurrentTrainer, TrainConfig
+
+    return RecurrentTrainer(model, cfg=TrainConfig(learning_rate=lr, log_every=0), device=dev)
+
+
+def rtrain_fit(family, dtype, batch, dev, kernels) -> dict:
+    """``RTRAIN_STEPS`` steps of ``RecurrentTrainer`` on ``batch``, each
+    checked for its K1 launches by path; the loss must fall."""
+    model = recurrent_model(family, dtype)
+    trainer = rtrain_trainer(model, dev)
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    fwd_want, grad_want = rtrain_step_launches(family, model.config.timesteps, dtype)
+    fwd_k, grad_k = kernels
+    losses, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(RTRAIN_STEPS):
+        fwd0, grad0 = dict(fwd_k.route_launches), dict(grad_k.route_launches)
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        fwd = {r: n - fwd0[r] for r, n in fwd_k.route_launches.items()}
+        grad = {r: n - grad0[r] for r, n in grad_k.route_launches.items()}
+        if fwd != fwd_want or grad != grad_want:
+            raise AssertionError(f"{family} {dtype} step {step}: K1 forward {fwd} (expected "
+                                 f"{fwd_want}), input gradient {grad} (expected {grad_want})")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(secs[1:])) * 1e3
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"rtrain fit {family} {dt} ({model.config}), input {list(batch[0].shape)}, "
+          f"{RTRAIN_STEPS} Adam({RTRAIN_LR}) steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"{step_ms:.3f} ms a step (median of steps 2-{RTRAIN_STEPS}; step 1 "
+          f"{secs[0] * 1e3:.1f} ms); peak device memory {peak / 2**30:.2f} GiB; K1 a step: "
+          f"forward {fwd_want}, input gradient {grad_want}", flush=True)
+    if not losses[-1] < losses[0] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{family} {dt}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    return {"step_ms": step_ms, "peak": peak, "losses": losses}
+
+
+def rtrain_parity(family, dtype, batch, dev, kernels) -> None:
+    """3 ``RecurrentTrainer`` steps with K1 against 3 on the plain conv from
+    the same weights, held by ``trajectory_gap`` to the gaps of
+    ``N_JITTER`` jittered plain runs (``train/parity.py``'s rule, the U-Net
+    ``train`` phase's)."""
+    fwd_k, grad_k = kernels
+    sd0 = recurrent_model(family, seed=SEED + 1).state_dict()
+    start = rtrain_trainer(recurrent_model(family, seed=SEED + 1), "cpu").variables
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    fwd_want, grad_want = rtrain_step_launches(family, 10, dtype)
+    runs = {"kernel": contextlib.nullcontext(), "plain": plain_conv()}
+    runs.update({f"jittered{i}": plain_conv(torch.Generator(device=dev).manual_seed(SEED + i))
+                 for i in range(N_JITTER)})
+    for label, ctx in runs.items():
+        model = recurrent_model(family, dtype)
+        model.load_state_dict(sd0)
+        trainer = rtrain_trainer(model, dev)
+        before = (fwd_k.launches, grad_k.launches)
+        with ctx:
+            losses = [trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])]
+            grads = trainer._jax_from_state_dict(
+                {n: p.grad for n, p in model.named_parameters()})["params"]
+            losses += [trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])
+                       for _ in range(PARITY_STEPS - 1)]
+        launched = (fwd_k.launches - before[0], grad_k.launches - before[1])
+        want = ((sum(fwd_want.values()) * PARITY_STEPS, sum(grad_want.values()) * PARITY_STEPS)
+                if label == "kernel" else (0, 0))
+        if launched != want:
+            raise AssertionError(f"{family} {label} run launched K1 {launched}, expected {want}")
+        runs[label] = (trainer.variables, losses, grads)
+        del trainer, model
+        torch.cuda.empty_cache()
+    jittered = [runs[f"jittered{i}"] for i in range(N_JITTER)]
+    line = trajectory_gap(runs["kernel"], runs["plain"], jittered, start, dtype, lr=RTRAIN_LR)
+    print(f"rtrain parity {family}, {dtype}, {PARITY_STEPS} steps, K1 vs the plain conv: losses "
+          + " vs ".join(str([round(v, 6) for v in r[1]]) for r in runs.values())
+          + f" ({', '.join(runs)}); {line}", flush=True)
+
+
+def rtrain_input_grad_rows(family, batch, dev, step_ms) -> list:
+    """K1's input gradient at every distinct shape one training step of
+    ``family`` gives it (recorded from a bf16 step), against its plain
+    version in bf16 and float32, timed beside cuDNN's dgrad of the padded
+    conv and the bound of the unpadded input; then the sums over one step's
+    calls beside ``step_ms`` (``{dtype name: ms a step}``)."""
+    records = []
+    model = recurrent_model(family, torch.bfloat16)
+    trainer = rtrain_trainer(model, dev)
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    with recording_input_grad(records):
+        trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])
+    del trainer, model
+    shapes = {}
+    for gy_shape, w, dil in records:
+        d = dil if isinstance(dil, int) else dil[0]
+        key = (gy_shape, tuple(w.shape), d)
+        if key not in shapes:
+            shapes[key] = [w, 0]
+        shapes[key][1] += 1
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"{family}: K1 input gradient at the {len(shapes)} distinct shapes of a training "
+              f"step ({len(records)} calls) vs plain, {dt}:", flush=True)
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        for (gy_shape, w_shape, d), (w, count) in shapes.items():
+            k = w_shape[0]
+            pad = (d * (k - 1) // 2,) * 3
+            name = f"{family} k{k} d{d} {w_shape[3]}->{w_shape[4]}"
+            gy = torch.randn(gy_shape, generator=gen_dev, device=dev).to(dtype)
+            row = check_input_grad(name, gy, w.to(dtype).contiguous(), d, pad)
+            row["calls_per_step"] = count
+            rows.append(row)
+            for key in sums:
+                sums[key] += count * row[key]
+            del gy
+        torch.cuda.empty_cache()
+        print(f"{family} K1 input gradient {dt}, one training step ({len(records)} calls): "
+              f"kernel {sums['ms']:.3f} ms ({100 * sums['ms'] / step_ms[dt]:.1f}% of the "
+              f"{step_ms[dt]:.3f} ms step), cuDNN dgrad {sums['library_ms']:.3f} ms "
+              f"(kernel/cuDNN {sums['ms'] / sums['library_ms']:.3f}), plain "
+              f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms (kernel at "
+              f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it)", flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def tf32(at_defaults: bool):
+    """TF32 at torch's defaults (``TORCH_TF32_DEFAULTS``) or off, for the
+    block; off again after it."""
+    cudnn, matmul = TORCH_TF32_DEFAULTS if at_defaults else (False, False)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def rtrain_tf32(batch, dev) -> None:
+    """Fault F4 for ``train-recurrent``: the float32 losses of the first two
+    steps (the second after one step's cuDNN wgrad) with TF32 at torch's
+    defaults against TF32 off, from the same weights."""
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    for family in ("runet", "rdcnet"):
+        got = {}
+        for label, on in (("off", False), ("defaults", True)):
+            trainer = rtrain_trainer(recurrent_model(family), dev)
+            with tf32(on):
+                got[label] = [trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])
+                              for _ in range(2)]
+            del trainer
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["defaults"], got["off"])]
+        print(f"F4 train-recurrent {family} float32: losses of steps 1-2 with TF32 off "
+              f"{got['off']}, at torch's defaults {got['defaults']}: relative gaps "
+              f"{[f'{r:.3e}' for r in rel]}", flush=True)
+
+
+def gate_scene():
+    """The scene of ``tests/test_recurrent_trained_gate.py::_scene`` (4
+    cells in 64 x 64 x 8, seed 0): image, mask, pwl, vector [1, X, Y, Z, C]
+    and the true labels [X, Y, Z]."""
+    X, Y, Z = GATE_SCENE
+    rng = np.random.default_rng(0)
+    centers = [(14, 14, 4), (14, 46, 4), (44, 22, 4), (46, 48, 4)]
+    xx, yy, zz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z), indexing="ij")
+    labels = np.zeros((X, Y, Z), np.int32)
+    best = np.full((X, Y, Z), np.inf)
+    for i, (cx, cy, cz) in enumerate(centers):
+        d2 = (xx - cx) ** 2 + (yy - cy) ** 2 + ((zz - cz) * 2.5) ** 2
+        hit = (d2 < 8.5**2) & (d2 < best)
+        labels[hit] = i + 1
+        best = np.where(hit, d2, best)
+    mask = (labels > 0).astype(np.float32)
+    vector = np.zeros((X, Y, Z, 3), np.float32)
+    for i, (cx, cy, cz) in enumerate(centers):
+        m = labels == i + 1
+        vector[m, 0] = (zz[m] - cz) / Z
+        vector[m, 1] = (yy[m] - cy) / Y
+        vector[m, 2] = (xx[m] - cx) / X
+    intensity = np.exp(-best / (2 * 6.0**2)).astype(np.float32)
+    img = np.stack([np.clip(intensity * s + rng.normal(0, 0.02, (X, Y, Z)), 0, 1)
+                    for s in (0.9, 1.0, 0.95, 0.9)], axis=-1).astype(np.float32)
+    img = (img - 0.5) / 0.5
+    return (img[None], mask[None, ..., None], np.ones((1, X, Y, Z, 1), np.float32),
+            vector[None], labels)
+
+
+def match_instances(a, b) -> list:
+    """Greedy 1:1 IoU matching of the instance labels of ``a`` to those of
+    ``b`` (``tests/test_recurrent_trained_gate.py::_match_instances``):
+    ``[(id_a, id_b, iou)]``."""
+    ids_b = [i for i in np.unique(b) if i > 0]
+    pairs, used = [], set()
+    for ia in (i for i in np.unique(a) if i > 0):
+        ma = a == ia
+        best = (None, 0.0)
+        for ib in ids_b:
+            if ib in used:
+                continue
+            mb = b == ib
+            iou = float((ma & mb).sum() / max((ma | mb).sum(), 1))
+            if iou > best[1]:
+                best = (ib, iou)
+        if best[0] is not None:
+            used.add(best[0])
+            pairs.append((int(ia), int(best[0]), best[1]))
+    return pairs
+
+
+def trained_gate(dev) -> None:
+    """``tests/test_recurrent_trained_gate.py`` composed on the card: RDCNet
+    (``RDCNetConfig()``, torch's default init from seed 0, the reference
+    model's, as the JAX test starts) trained by ``RecurrentTrainer`` (Adam 1e-3, pixel
+    BCE + MSE) for ``GATE_STEPS`` steps on the gate scene, served by
+    ``compile_recurrent_apply`` in float32, clustered by
+    ``pixel_vec_to_cell`` (the vectors de-normalized and negated, as the
+    JAX test does); its instances matched 1:1 to the scene's cells by IoU
+    (the JAX test's greedy matching): at least half the cells must match at
+    IoU >= ``GATE_IOU``."""
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.infer.vector_cluster import pixel_vec_to_cell
+
+    from hcunet_tpu_torch.config import RDCNetConfig
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+
+    img, mask, pwl, vector, true_labels = gate_scene()
+    # the JAX test starts from the torch reference RDCNet's weights (torch's
+    # default conv init after torch.manual_seed(0)): so does this one
+    torch.manual_seed(0)
+    model = RDCNet(RDCNetConfig())
+    trainer = rtrain_trainer(model, dev)
+    t = [torch.from_numpy(a).to(dev) for a in (img, mask, pwl, vector)]
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(*t) for _ in range(GATE_STEPS)]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    apply = compile_recurrent_apply(model.eval(), dtype=torch.float32, device=dev)
+    out = apply(torch.from_numpy(img).to(dev))[0].cpu().numpy()
+    prob = 1.0 / (1.0 + np.exp(-out[..., 0]))
+    X, Y, Z = GATE_SCENE
+    labels = pixel_vec_to_cell(out[..., 2:] * np.asarray([-Z, -Y, -X], np.float32), prob)
+    pairs = match_instances(true_labels, labels)
+    matched = sum(1 for p in pairs if p[2] >= GATE_IOU)
+    n_true = len([i for i in np.unique(true_labels) if i > 0])
+    sem, truth = prob > 0.5, true_labels > 0
+    dice = 2 * (sem & truth).sum() / max(sem.sum() + truth.sum(), 1)
+    print(f"trained gate: RDCNet, {GATE_STEPS} steps (the JAX test takes 150) on {GATE_SCENE} in "
+          f"{fit_s:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; dice {dice:.3f}; "
+          f"{len([i for i in np.unique(labels) if i > 0])} instances, {matched} of {n_true} "
+          f"cells matched at IoU >= {GATE_IOU} (pair IoUs {[round(p[2], 3) for p in pairs]})",
+          flush=True)
+    if 2 * matched < n_true:
+        raise AssertionError(f"trained gate: {matched} of {n_true} cells matched")
+
+
+def rtrain_cli(dev) -> None:
+    """``train-recurrent --model rdcnet --epochs 1`` through ``cli.main`` on
+    two stacks of ``RTRAIN_STACK`` written to a temporary directory, and the
+    checkpoint it writes served by ``predict-recurrent``, equal to
+    ``compile_recurrent_apply`` on the loaded model (cuDNN deterministic:
+    RDCNet's transposed conv varies run to run otherwise)."""
+    from hcunet_tpu_torch.data.transforms import integer_unit_scale
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.utils.checkpoint import load_model
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_rtrain_")
+    try:
+        stack = os.path.join(root, "stack")
+        os.makedirs(stack)
+        scenes = [recurrent_scene(RTRAIN_STACK, SEED + 10 + i) for i in range(2)]
+        for i, scene in enumerate(scenes):
+            write_recursive_stack(stack, f"r{i}", scene)
+        ckpt = os.path.join(root, "rdcnet.hcunet")
+        t0 = time.perf_counter()
+        info = cli_main(["train-recurrent", stack, "--model", "rdcnet", "--epochs", "1",
+                         "--out", ckpt])
+        train_s = time.perf_counter() - t0
+        if info != {"checkpoint": ckpt, "model": "rdcnet"}:
+            raise AssertionError(f"train-recurrent printed {info}")
+        img_path = os.path.join(stack, "r0.npy")
+        torch.backends.cudnn.deterministic = True
+        try:
+            pred = cli_main(["predict-recurrent", img_path, "--checkpoint", ckpt,
+                             "--out-dir", os.path.join(root, "out")])
+            got = np.load(pred["outputs"][img_path])
+            model, _v, _h = load_model(ckpt, device=dev)
+            vol = scenes[0]["disk"]["image"].transpose(2, 1, 0, 3)
+            x = (vol.astype(np.float32) / integer_unit_scale(vol.dtype) - 0.5) / 0.5
+            want = compile_recurrent_apply(model, device=dev)(
+                torch.from_numpy(x[None]).to(dev))[0].cpu().numpy()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        same = bool(np.array_equal(got, want))
+        print(f"cli train-recurrent --model rdcnet --epochs 1 (2 stacks {RTRAIN_STACK}, crop "
+              f"{RTRAIN_CROP}): "
+              f"{train_s:.2f} s, {info}; predict-recurrent on it: {got.shape}, finite "
+              f"{bool(np.isfinite(got).all())}, equal to compile_recurrent_apply: {same}",
+              flush=True)
+        if not same or got.shape != (*RTRAIN_STACK, 5) or not np.isfinite(got).all():
+            raise AssertionError("predict-recurrent on the trained checkpoint")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def rtrain_phase(dev, kernels) -> tuple:
+    """Training of the recurrent family on the card at full width:
+    ``RecurrentTrainer`` on ``RUNetConfig()`` and ``RDCNetConfig()`` (10
+    timesteps) in float32 and bf16 on a synthetic ``RTRAIN_CROP`` sample
+    (the path: the counts set to 0 before these four fits and read after),
+    ms a step and the peak memory, each step's K1 launches by path, the loss
+    falling over ``RTRAIN_STEPS`` steps; 3 K1 steps against 3 on the plain
+    conv within the jittered runs' gaps; K1's input gradient at every
+    recurrent training shape against its plain version; F4's TF32 gap of
+    the first losses; the trained gate; ``train-recurrent`` and
+    ``predict-recurrent`` through ``cli.main``.  ``kernels``: K1's forward
+    and input-gradient counts.  Returns the input-gradient rows and the
+    path's K1 launches ``{"forward", "input_grad"}``."""
+    fwd_k, grad_k = kernels
+    t_phase = time.perf_counter()
+    marks = []
+    batch = recurrent_scene(RTRAIN_CROP, SEED)["batch"]
+    marks.append(("scene", time.perf_counter()))
+    torch.cuda.synchronize()
+    reset_counts([fwd_k, grad_k])
+    fits = {}
+    for family in ("runet", "rdcnet"):
+        for dtype in (torch.float32, torch.bfloat16):
+            fits[family, dtype] = rtrain_fit(family, dtype, batch, dev, kernels)
+            torch.cuda.empty_cache()
+    launches = {"forward": fwd_k.launches, "input_grad": grad_k.launches}
+    want = {"forward": 0, "input_grad": 0}
+    for family in ("runet", "rdcnet"):
+        for dtype in (torch.float32, torch.bfloat16):
+            f, g = rtrain_step_launches(family, 10, dtype)
+            want["forward"] += RTRAIN_STEPS * sum(f.values())
+            want["input_grad"] += RTRAIN_STEPS * sum(g.values())
+    print(f"rtrain path: K1 forward {launches['forward']} ({fwd_k.route_launches}), input "
+          f"gradient {launches['input_grad']} ({grad_k.route_launches}) over the four fits",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"the rtrain fits launched K1 {launches}, expected {want}")
+    marks.append(("fits", time.perf_counter()))
+    tensors = [torch.from_numpy(a).to(dev) for a in batch]
+    for family, dtype in (("runet", torch.float32), ("runet", torch.bfloat16)):
+        trainer = rtrain_trainer(recurrent_model(family, dtype), dev)
+
+        def step():
+            return trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])
+
+        step()  # warm-up
+        profile_device(f"one {family} {dtype} training step {list(batch[0].shape)}", step,
+                       {"K1": "conv3d_valid", "cuDNN wgrad": "wgrad", "cuDNN dgrad": "dgrad",
+                        "batch norm": "batch_norm", "Adam": "adam"})
+        del trainer
+    torch.cuda.empty_cache()
+    marks.append(("profiles", time.perf_counter()))
+    for family in ("runet", "rdcnet"):
+        for dtype in (torch.float32, torch.bfloat16):
+            rtrain_parity(family, dtype, batch, dev, kernels)
+    marks.append(("parity", time.perf_counter()))
+    rows = []
+    for family in ("runet", "rdcnet"):
+        step_ms = {"f32": fits[family, torch.float32]["step_ms"],
+                   "bf16": fits[family, torch.bfloat16]["step_ms"]}
+        rows += rtrain_input_grad_rows(family, batch, dev, step_ms)
+    marks.append(("input gradients", time.perf_counter()))
+    rtrain_tf32(batch, dev)
+    marks.append(("F4", time.perf_counter()))
+    trained_gate(dev)
+    marks.append(("trained gate", time.perf_counter()))
+    rtrain_cli(dev)
+    marks.append(("cli", time.perf_counter()))
+    torch.cuda.empty_cache()
+    split = ", ".join(f"{name} {t - t0:.1f}" for (name, t), (_n, t0) in
+                      zip(marks, [("start", t_phase)] + marks[:-1]))
+    print(f"rtrain phase: {time.perf_counter() - t_phase:.1f} s ({split})", flush=True)
+    return rows, launches
+
+
+# the detection training phase: full-width ResNet50-FPN, 5 classes (as
+# train-rcnn without --simple-class), synthetic sections
+DTRAIN_HW = (512, 512)
+DTRAIN_BOXES = (20, 60)
+DTRAIN_MAX_GT = 64
+DTRAIN_STEPS = 20
+DTRAIN_BATCH = 4
+DTRAIN_LR = 1e-4
+PRETRAIN_STEPS = 100
+LABEL_NAMES = {1: "OHC1", 2: "OHC2", 3: "OHC3", 4: "IHC"}
+
+
+def section_sample(seed, hw=DTRAIN_HW) -> tuple:
+    """A synthetic section [1, H, W, 3] in [0, 1] with 20-60 cells, each a
+    bright ellipse whose color follows its class (1-4), and the cells'
+    boxes ``(x1, y1, x2, y2)`` and labels."""
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    img = rng.normal(0.12, 0.03, (H, W, 3))
+    yy, xx = np.mgrid[0:H, 0:W]
+    palette = {1: (0.9, 0.4, 0.3), 2: (0.4, 0.9, 0.3), 3: (0.3, 0.4, 0.9), 4: (0.9, 0.9, 0.5)}
+    n = int(rng.integers(DTRAIN_BOXES[0], DTRAIN_BOXES[1] + 1))
+    boxes, labels = [], []
+    for _ in range(n):
+        w, h = rng.uniform(12, 30, 2)
+        x0, y0 = rng.uniform(2, W - w - 2), rng.uniform(2, H - h - 2)
+        label = int(rng.integers(1, 5))
+        inside = ((xx - x0 - w / 2) / (w / 2)) ** 2 + ((yy - y0 - h / 2) / (h / 2)) ** 2 < 1
+        img[inside] = 0.5 * img[inside] + 0.5 * np.asarray(palette[label])
+        boxes.append((round(x0), round(y0), round(x0 + w), round(y0 + h)))
+        labels.append(label)
+    return (np.clip(img, 0, 1).astype(np.float32)[None], np.asarray(boxes, np.float32),
+            np.asarray(labels, np.int32))
+
+
+def write_section(root, name, sample) -> None:
+    """A section as ``<name>.tif`` (uint8 RGB) and ``<name>.xml`` (VOC)."""
+    from hcunet_tpu_torch.data.tiff import imwrite
+
+    img, boxes, labels = sample
+    imwrite(os.path.join(root, f"{name}.tif"), (img[0] * 255).astype(np.uint8))
+    objects = "".join(
+        f"<object><name>{LABEL_NAMES[int(c)]}</name><bndbox><xmin>{int(b[0])}</xmin>"
+        f"<ymin>{int(b[1])}</ymin><xmax>{int(b[2])}</xmax><ymax>{int(b[3])}</ymax></bndbox>"
+        f"</object>" for b, c in zip(boxes, labels))
+    with open(os.path.join(root, f"{name}.xml"), "w") as f:
+        f.write(f"<annotation>{objects}</annotation>")
+
+
+def train_detector(seed=SEED):
+    """The ResNet50-FPN ``Detector`` (width 64, float32, 5 classes) with the
+    JAX ``Detector.init``'s distributions from ``seed``, on the CPU."""
+    from hcunet_tpu_torch.config import DetectorConfig
+    from hcunet_tpu_torch.models.detection import Detector
+    from hcunet_tpu_torch.models.unet import init_like_flax
+
+    det = Detector(DetectorConfig(num_classes=5), backbone="resnet50", device="cpu")
+    return init_like_flax(det, torch.Generator().manual_seed(seed), scale=1.0)
+
+
+def detection_trainer(det, dev, lr=DTRAIN_LR):
+    from hcunet_tpu_torch.train.detection_trainer import DetectionTrainConfig, DetectionTrainer
+
+    return DetectionTrainer(det, cfg=DetectionTrainConfig(learning_rate=lr, max_gt=DTRAIN_MAX_GT),
+                            device=dev)
+
+
+def detector_losses_and_grads(det, sample, dev) -> tuple:
+    """One ``Detector.losses`` (B=1, ``DTRAIN_MAX_GT`` slots) and its
+    backward on ``dev``: the four terms, the new running statistics and
+    the gradients, as the JAX trees of ``train/parity.py``."""
+    from hcunet_tpu_torch.utils.port_jax import jax_variables_from_detector_state_dict
+
+    trainer = detection_trainer(det, dev)
+    img, boxes, labels = sample
+    det.zero_grad(set_to_none=True)
+    total, losses, stats = trainer._sample_loss(
+        torch.from_numpy(img).to(dev), {"boxes": boxes, "labels": labels})
+    total.backward()
+    sd = {k: v.detach().cpu() for k, v in det.state_dict().items()}
+    sd.update({k: v.cpu() for k, v in stats.items()})
+    stats_tree = jax_variables_from_detector_state_dict(sd, "resnet50")["trunk"]["batch_stats"]
+    g = jax_variables_from_detector_state_dict(
+        dict(sd, **{n: p.grad.cpu() for n, p in det.named_parameters()}), "resnet50")
+    grads = {"trunk": g["trunk"]["params"], "head": g["head"]["params"]}
+    return {k: float(v.detach()) for k, v in losses.items()}, stats_tree, grads
+
+
+def detector_gaps(a, b) -> dict:
+    """The largest relative gap of the loss terms, the largest per-tensor
+    gradient gap (``train/parity.py::gradient_gaps``: the norm of the
+    difference over the norm, the BN-cancelled biases left out) with its
+    tensor, and the running statistics' largest gap over max(1, scale)."""
+    from hcunet_tpu_torch.train.parity import flat, gradient_gaps
+
+    loss = max(abs(a[0][k] - b[0][k]) / abs(b[0][k]) for k in b[0])
+    ga, gb = flat(a[2]), flat(b[2])
+    # the zero-init last BN of each bottleneck leaves its branch's gradients
+    # exactly 0 on the first step: held to 0 on the other side too
+    zero = {p for p, v in gb.items() if not np.any(v)}
+    if any(np.any(ga[p]) for p in zero):
+        raise AssertionError(f"gradients 0 on one side only: {sorted(zero)[:4]}")
+    g = gradient_gaps({"/".join(p): v for p, v in ga.items() if p not in zero},
+                      {"/".join(p): v for p, v in gb.items() if p not in zero})
+    worst = max(g, key=g.get)
+    sa, sb = flat(a[1]), flat(b[1])
+    stats = max(float(np.abs(sa[k] - v).max()) / max(1.0, float(np.abs(v).max()))
+                for k, v in sb.items())
+    return {"loss": loss, "grad": g[worst], "grad_at": "/".join(worst), "stats": stats,
+            "zero_grads": len(zero)}
+
+
+@contextlib.contextmanager
+def jittered_layers(model, gen):
+    """Each conv and linear output of ``model`` multiplied by ``1 + JITTER
+    u`` (u uniform in [-1, 1], per element, from ``gen``), as another float32
+    summation order would move it: the jittered runs of the parity rule."""
+    def hook(_module, _inputs, out):
+        u = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+        return out * (1 + JITTER * u)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def dtrain_parity(dev, sample) -> None:
+    """The card's first-step loss terms, running statistics and gradients
+    against the port on the CPU of the same machine, on the same weights
+    and image (TF32 off), held as ``trajectory_gap`` holds K1's training
+    runs: within ``JITTER_FACTOR`` times the largest gap that ``N_JITTER``
+    card runs with jittered conv and linear outputs open, plus
+    ``GAP_FLOOR`` (float32).  cuDNN's and the CPU's convs sum in other
+    orders, and through ~50 train-mode batch norms the deep layers'
+    first-step gradients move by far more than float32's epsilon."""
+    sd0 = train_detector(SEED + 1).state_dict()
+
+    def run(where, gen=None):
+        det = train_detector(SEED + 1)
+        det.load_state_dict(sd0)
+        with jittered_layers(det, gen) if gen is not None else contextlib.nullcontext():
+            return detector_losses_and_grads(det, sample, where)
+
+    card = run(dev)
+    cpu = run(torch.device("cpu"))
+    noise = [detector_gaps(run(dev, torch.Generator(device=dev).manual_seed(SEED + i)), card)
+             for i in range(N_JITTER)]
+    torch.cuda.empty_cache()
+    got = detector_gaps(card, cpu)
+    factor, floor = JITTER_FACTOR[torch.float32], GAP_FLOOR[torch.float32]
+    parts, bad = [], []
+    for kind in ("loss", "grad", "stats"):
+        n = max(r[kind] for r in noise)
+        allowed = factor * n + floor[kind]
+        where = f" ({got['grad_at']})" if kind == "grad" else ""
+        parts.append(f"{kind} gap {got[kind]:.2e}{where}, jittered runs "
+                     f"{', '.join(f'{r[kind]:.2e}' for r in noise)}, allowed {allowed:.2e}")
+        if got[kind] > allowed:
+            bad.append(kind)
+    print(f"dtrain parity, first step, card vs CPU: losses {card[0]} vs {cpu[0]}; "
+          f"{got['zero_grads']} gradients exactly 0 on both sides (the zero-init last BNs' "
+          f"branches); {'; '.join(parts)}", flush=True)
+    if bad:
+        raise AssertionError(f"the detector's first step on the card parts from the CPU's: {bad}")
+
+
+def dtrain_tf32(dev, sample) -> None:
+    """Fault F4 for ``train-rcnn``: the first step's loss terms with TF32 at
+    torch's defaults against TF32 off, from the same weights."""
+    det = train_detector(SEED + 1)
+    trainer = detection_trainer(det, dev)
+    img, boxes, labels = sample
+    got = {}
+    for label, on in (("off", False), ("defaults", True)):
+        with tf32(on), torch.no_grad():
+            _t, losses, _s = trainer._sample_loss(torch.from_numpy(img).to(dev),
+                                                 {"boxes": boxes, "labels": labels})
+        got[label] = {k: float(v) for k, v in losses.items()}
+    rel = {k: f"{abs(got['defaults'][k] - v) / abs(v):.3e}" for k, v in got["off"].items()}
+    print(f"F4 train-rcnn first step: loss terms with TF32 off {got['off']}, at torch's "
+          f"defaults {got['defaults']}: relative gaps {rel}", flush=True)
+    del trainer, det
+    torch.cuda.empty_cache()
+
+
+def dtrain_fit(dev, samples) -> object:
+    """``DetectionTrainer`` at B=1 for ``DTRAIN_STEPS`` steps on one section
+    (the loss must fall) and at B=``DTRAIN_BATCH`` for 3 steps on four; ms
+    a step, the peak memory and the loss terms at the first and last step.
+    Returns the trained detector."""
+    det = train_detector()
+    trainer = detection_trainer(det, dev)
+    for label, steps, group in (("B=1", DTRAIN_STEPS, samples[:1]),
+                                (f"B={DTRAIN_BATCH}", 3, samples[:DTRAIN_BATCH])):
+        images = np.concatenate([s[0] for s in group])
+        targets = [{"boxes": s[1], "labels": s[2]} for s in group]
+        totals, terms, secs = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            if len(group) == 1:
+                totals.append(trainer.train_step(images, targets[0]["boxes"],
+                                                 targets[0]["labels"]))
+            else:
+                totals.append(trainer.train_step_batch(images, targets))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            terms.append({k: round(v, 5) for k, v in trainer.last_losses.items()})
+        peak = torch.cuda.max_memory_allocated()
+        print(f"dtrain fit {label} (ResNet50-FPN width 64, float32, 5 classes, "
+              f"{[len(s[2]) for s in group]} boxes, max_gt {DTRAIN_MAX_GT}, AdamW({DTRAIN_LR})): "
+              f"{steps} steps, loss {totals[0]:.5f} -> {totals[-1]:.5f}; "
+              f"{float(np.median(secs[1:])) * 1e3:.3f} ms a step (median of steps 2-{steps}; "
+              f"step 1 {secs[0] * 1e3:.1f} ms); peak device memory {peak / 2**30:.2f} GiB; "
+              f"terms first {terms[0]}, last {terms[-1]}", flush=True)
+        if not all(math.isfinite(v) for v in totals):
+            raise AssertionError(f"dtrain {label}: a loss is not finite: {totals}")
+        if len(group) == 1 and not totals[-1] < totals[0]:
+            raise AssertionError(f"dtrain {label}: the loss did not fall: {totals}")
+    return det
+
+
+def dtrain_map(det, samples) -> None:
+    """``evaluate_detections`` on the trained detector's detections of the
+    sections (no gate on the value)."""
+    from hcunet_tpu_torch.analysis.detection_metrics import evaluate_detections
+
+    out = det.detect(np.concatenate([s[0] for s in samples]))
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    preds = [{k: out[k][i][out["valid"][i]] for k in ("boxes", "scores", "labels")}
+             for i in range(len(samples))]
+    gts = [{"boxes": s[1], "labels": s[2]} for s in samples]
+    res = evaluate_detections(preds, gts)
+    print(f"evaluate_detections on the trained detector's {sum(len(p['scores']) for p in preds)} "
+          f"detections of {len(samples)} sections ({sum(len(g['labels']) for g in gts)} boxes): "
+          f"mAP@0.5 {res['map']:.4f}, recall {res['recall']:.4f}, AP per class "
+          f"{ {c: round(v['ap'], 4) for c, v in res['per_class'].items()} }", flush=True)
+
+
+def dtrain_pretrain(det) -> None:
+    """``pretrain_backbone`` at width 64 (batch 16, 64 x 64,
+    ``PRETRAIN_STEPS`` steps; its accuracy printed) and
+    ``seed_detector_backbone`` applied to ``det``."""
+    from hcunet_tpu_torch.train.pretrain import pretrain_backbone, seed_detector_backbone
+    from hcunet_tpu_torch.utils.port_jax import (
+        detector_state_dict_from_jax_variables,
+        jax_variables_from_detector_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    backbone = pretrain_backbone(steps=PRETRAIN_STEPS, batch=16, width=64, hw=(64, 64),
+                                 log_every=25, progress=lambda m: print(f"  {m}", flush=True),
+                                 device=det.device)
+    sec = time.perf_counter() - t0
+    seeded = seed_detector_backbone(
+        jax_variables_from_detector_state_dict(det.state_dict(), "resnet50"), backbone)
+    det.load_state_dict(detector_state_dict_from_jax_variables(seeded, "resnet50"))
+    got = det.backbone.body.conv1.weight.detach().cpu().numpy()
+    want = np.transpose(backbone["params"]["stem_conv"]["kernel"], (3, 2, 0, 1))
+    same = bool(np.array_equal(got, want))
+    print(f"pretrain_backbone (width 64, batch 16, 64 x 64, {PRETRAIN_STEPS} steps): {sec:.2f} s; "
+          f"seed_detector_backbone into the detector: stem equal {same}", flush=True)
+    if not same:
+        raise AssertionError("seed_detector_backbone did not seed the detector's trunk")
+
+
+def dtrain_cli(model, dev, samples) -> None:
+    """``train-rcnn --backbone resnet50 --epochs 1`` and ``pretrain-backbone
+    --steps 20`` through ``cli.main``; the detector checkpoint then drives
+    ``analyze --detector`` on the ``cli`` phase's ``CLI_SCENE`` with the U-Net
+    ``model``."""
+    from hcunet_tpu_torch.models.resnet import ResNet
+    from hcunet_tpu_torch.train.pretrain import load_backbone
+    from hcunet_tpu_torch.utils.checkpoint import load_model, save_checkpoint
+    from hcunet_tpu_torch.utils.port_jax import (
+        jax_backbone_from_state_dict,
+        jax_variables_from_unet_state_dict,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dtrain_")
+    try:
+        sections = os.path.join(root, "sections")
+        os.makedirs(sections)
+        for i, s in enumerate(samples[:2]):
+            write_section(sections, f"sec{i}", s)
+        det_ckpt = os.path.join(root, "detector.hcunet")
+        t0 = time.perf_counter()
+        info = cli_main(["train-rcnn", sections, "--epochs", "1", "--backbone", "resnet50",
+                         "--out", det_ckpt])
+        rcnn_s = time.perf_counter() - t0
+        det, _v, _h = load_model(det_ckpt, device=dev)
+        finite = all(bool(torch.isfinite(p).all()) for p in det.state_dict().values())
+        bb = os.path.join(root, "backbone.msgpack")
+        t0 = time.perf_counter()
+        info_bb = cli_main(["pretrain-backbone", "--steps", "20", "--out", bb])
+        bb_s = time.perf_counter() - t0
+        load_backbone(bb, template=jax_backbone_from_state_dict(
+            {f"b.{k}": v for k, v in ResNet().state_dict().items()}, prefix="b"))
+        print(f"cli train-rcnn --backbone resnet50 --epochs 1 (2 sections {DTRAIN_HW}): "
+              f"{rcnn_s:.2f} s, {info}, weights finite {finite}; pretrain-backbone --steps 20: "
+              f"{bb_s:.2f} s, {info_bb}, read back against the trunk's template", flush=True)
+        if info != {"checkpoint": det_ckpt} or not finite or info_bb != {"backbone": bb}:
+            raise AssertionError("train-rcnn or pretrain-backbone wrote a bad file")
+        unet = os.path.join(root, "unet.hcunet")
+        save_checkpoint(unet, jax_variables_from_unet_state_dict(model.state_dict(), model.config),
+                        model.config, snapshot_sources=False)
+        stack = os.path.join(root, "stack")
+        os.makedirs(stack)
+        write_stack_sample(stack, "s0", SEED)
+        t0 = time.perf_counter()
+        out = cli_main(["analyze", os.path.join(stack, "s0.npy"), "--unet", unet, "--detector",
+                        det_ckpt, "--numchunks", "2", "--no-cochlea",
+                        "--out", os.path.join(root, "out")])
+        print(f"cli analyze --detector <the train-rcnn checkpoint> on {CLI_SCENE}: "
+              f"{time.perf_counter() - t0:.2f} s, {out}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dtrain_phase(model, dev) -> None:
+    """Training of the detector on the card at full width (no TPU kernel's
+    counterpart on its path: cuDNN's 2D convs, plain-torch RoIAlign and NMS):
+    the first step against the CPU's; F4's TF32 gap of the first losses;
+    ``DetectionTrainer`` at B=1 and B=4 on synthetic sections;
+    ``evaluate_detections`` on its output; ``pretrain_backbone`` and
+    ``seed_detector_backbone``; ``train-rcnn`` and ``pretrain-backbone``
+    through ``cli.main`` and the trained checkpoint through ``analyze
+    --detector`` with the U-Net ``model``."""
+    t_phase = time.perf_counter()
+    marks = []
+    samples = [section_sample(SEED + i) for i in range(DTRAIN_BATCH)]
+    marks.append(("sections", time.perf_counter()))
+    dtrain_parity(dev, samples[0])
+    marks.append(("card vs CPU", time.perf_counter()))
+    dtrain_tf32(dev, samples[0])
+    marks.append(("F4", time.perf_counter()))
+    det = dtrain_fit(dev, samples)
+    marks.append(("fit", time.perf_counter()))
+    dtrain_map(det, samples)
+    marks.append(("mAP", time.perf_counter()))
+    dtrain_pretrain(det)
+    del det
+    torch.cuda.empty_cache()
+    marks.append(("pretrain", time.perf_counter()))
+    dtrain_cli(model, dev, samples)
+    marks.append(("cli", time.perf_counter()))
+    torch.cuda.empty_cache()
+    split = ", ".join(f"{name} {t - t0:.1f}" for (name, t), (_n, t0) in
+                      zip(marks, [("start", t_phase)] + marks[:-1]))
+    print(f"dtrain phase: {time.perf_counter() - t_phase:.1f} s ({split})", flush=True)
+
+
 # phases that --phases can pick, in the order they run, and the kernels
 # each launches
 PHASES = {
@@ -2270,6 +3237,8 @@ PHASES = {
     "slice3": ("K1", "K2", "host"),
     "cli": ("K1", "host"),
     "recurrent": ("K1",),
+    "rtrain": ("K1",),
+    "dtrain": (),
 }
 
 
@@ -2304,7 +3273,7 @@ def main(argv=None) -> int:
     from hcunet_tpu_torch.config import UNetConfig
     from hcunet_tpu_torch.infer.serving import Segmenter
     from hcunet_tpu_torch.csrc import build_all
-    from hcunet_tpu_torch.ops.conv import CONV3D_VALID
+    from hcunet_tpu_torch.ops.conv import CONV3D_VALID, CONV3D_VALID_INPUT_GRAD
     from hcunet_tpu_torch.ops.distance import EDT_PASS
     from hcunet_tpu_torch.ops.dot import DOT_BLOCKED
     from hcunet_tpu_torch.ops.watershed import WATERSHED_HOST
@@ -2413,9 +3382,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         marks.append(("recurrent", time.perf_counter()))
 
-    # phase 14: results.  A kernel's launches are those of the whole main
+    # phase 14: recurrent training
+    rtrain_rows = []
+    rtrain_counts = {"forward": 0, "input_grad": 0}
+    if "rtrain" in phases:
+        rtrain_rows, rtrain_counts = rtrain_phase(dev, (CONV3D_VALID, CONV3D_VALID_INPUT_GRAD))
+        torch.cuda.empty_cache()
+        marks.append(("rtrain", time.perf_counter()))
+    # phase 15: detection training (no kernel on its path)
+    if "dtrain" in phases:
+        dtrain_phase(model, dev)
+        torch.cuda.empty_cache()
+        marks.append(("dtrain", time.perf_counter()))
+
+    # phase 16: results.  A kernel's launches are those of the whole main
     # path (slices 1-3, the subpixel route, training, the command line and
-    # the recurrent family):
+    # the recurrent family's serving and training):
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
@@ -2425,13 +3407,15 @@ def main(argv=None) -> int:
                    "slice2": counts[name], "slice3": counts3[name],
                    "train": train_counts["forward"] if k1 else 0,
                    "cli": cli_launches if k1 else 0,
-                   "recurrent": rec_launches if k1 else 0}
+                   "recurrent": rec_launches if k1 else 0,
+                   "rtrain": rtrain_counts["forward"] if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
-    for row in grad_rows:
-        row["launches"] = train_counts["input_grad"] if full else None
-        row["launches_by_path"] = {"train": train_counts["input_grad"]} if full else None
+    grad_by_path = {"train": train_counts["input_grad"], "rtrain": rtrain_counts["input_grad"]}
+    for row in grad_rows + rtrain_rows:
+        row["launches"] = sum(grad_by_path.values()) if full else None
+        row["launches_by_path"] = grad_by_path if full else None
     paths = {"slice1": f"slice 1 {total} K1",
              "subpixel": f"the subpixel request {sub_launches} K1",
              "slice2": f"slice 2 {counts['K1']} K1, {counts['K2']} K2 and {counts['K3']} K3",
@@ -2439,13 +3423,16 @@ def main(argv=None) -> int:
                       f"{train_counts['input_grad']} K1 input-gradient",
              "slice3": f"slice 3 {counts3['K1']} K1, {counts3['K2']} K2 and {counts3['K3']} K3",
              "cli": f"the command line's analyze {cli_launches} K1",
-             "recurrent": f"the recurrent forwards and predict-recurrent {rec_launches} K1"}
+             "recurrent": f"the recurrent forwards and predict-recurrent {rec_launches} K1",
+             "rtrain": f"recurrent training {rtrain_counts['forward']} K1 forward and "
+                       f"{rtrain_counts['input_grad']} K1 input-gradient",
+             "dtrain": "detection training no kernel"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "
         + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:]))
     )
-    rows += grad_rows + k2_rows + k3_rows
+    rows += grad_rows + rtrain_rows + k2_rows + k3_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     device = {

@@ -7,17 +7,22 @@ Subcommands:
     analyze      one z-stack end-to-end (checkpointed U-Net + detector)
     batch        walk a data root, analyze every tif (manifest-resumable)
     train-unet   train the valid-conv U-Net on Stack triplets
+    train-rcnn   train the detector on Section xml/tif pairs
+    train-recurrent  train RecursiveUnet / RDCNet on RecursiveStack data
+    predict-recurrent  a recurrent checkpoint's raw head over z-stacks
     preprocess   build COM/vector training targets from label masks
     validate     dice / pixel-error validation on a Stack dataset
     study        aggregate per-cell stats across analyzed images (+figures)
-    predict-recurrent  a recurrent checkpoint's raw head over z-stacks
+    pretrain-backbone  synthetic backbone pretraining (no-egress ImageNet sub)
 
 Each parser takes the JAX command's arguments with its defaults; the JAX
-command's ``train-rcnn``, ``train-recurrent``, ``pretrain-backbone`` and
-``bench`` wait for their back ends.  The
+command's ``bench`` waits for its back end.  The
 commands that run a model also take ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions of the kernels on the host): there is no fallback
-to the CPU when the card is missing.  Checkpoints are the JAX package's zip
+to the CPU when the card is missing.  The training commands start from
+weights drawn from a seeded generator with the JAX initializers'
+distributions.  Every command computes float32 in float32: ``main`` turns
+TF32 off for the process (:func:`pin_float32`).  Checkpoints are the JAX package's zip
 format, so a checkpoint written by either command line loads in the other.
 The U-Net serves in its checkpoint's dtype, float32, and
 ``predict-recurrent`` in bfloat16 through ``compile_recurrent_apply``, as
@@ -99,6 +104,65 @@ def _add_train_unet(sub):
     _add_device(p)
 
 
+def _add_train_recurrent(sub):
+    p = sub.add_parser(
+        "train-recurrent",
+        help="train RecursiveUnet or RDCNet (the hcat/r_unet.py recipe: "
+        "pwl-BCE on the probability channel + MSE on the vector channels)",
+    )
+    p.add_argument("data", help="directory of X.tif / X.mask.tif / X.pwl.tif "
+                                "/ X.labels.com.tif / X.labels.vector.pkl "
+                                "(see `hcunet preprocess`)")
+    p.add_argument("--model", default="runet", choices=["runet", "rdcnet"])
+    p.add_argument("--out", default="recurrent.hcunet")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--crop", type=int, nargs=3, default=[128, 128, 10])
+    p.add_argument("--timesteps", type=int, default=None,
+                   help="override the recurrence depth")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="shard each train batch over this many devices "
+                        "(not ported yet: values above 1 exit)")
+    _add_device(p)
+
+
+def _add_train_rcnn(sub):
+    p = sub.add_parser("train-rcnn", help="train the detection head")
+    p.add_argument("data", help="directory of X.tif + X.xml (VOC boxes)")
+    p.add_argument("--out", default="detector.hcunet")
+    p.add_argument("--epochs", type=int, default=5000)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--gamma", type=float, default=0.997)
+    p.add_argument("--scale", type=float, default=3.0)
+    p.add_argument("--simple-class", action="store_true")
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="samples per optimizer step (B=1 losses, gradients "
+                        "averaged; the reference is strictly batch=1)")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="shard each global batch over N devices "
+                        "(not ported yet: values above 1 exit)")
+    p.add_argument("--backbone", choices=("resnet50", "small"),
+                   default="resnet50",
+                   help="resnet50 = the reference's production architecture "
+                        "(hcat/rcnn.py:14-20); small = a light FPN trunk "
+                        "for quick runs")
+    _add_device(p)
+
+
+def _add_pretrain(sub):
+    p = sub.add_parser(
+        "pretrain-backbone",
+        help="pretrain the detector's ResNet trunk on a synthetic shape "
+        "task (a substitute for ImageNet weights without a download)",
+    )
+    p.add_argument("--out", default="backbone.msgpack")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--width", type=int, default=64)
+    _add_device(p)
+
+
 def _add_preprocess(sub):
     p = sub.add_parser("preprocess", help="build training targets")
     p.add_argument("data", help="directory of *.labels.tif color masks")
@@ -161,18 +225,33 @@ def build_parser() -> argparse.ArgumentParser:
     _add_analyze(sub)
     _add_batch(sub)
     _add_train_unet(sub)
+    _add_train_rcnn(sub)
+    _add_train_recurrent(sub)
+    _add_predict_recurrent(sub)
     _add_preprocess(sub)
     _add_validate(sub)
     _add_study(sub)
-    _add_predict_recurrent(sub)
+    _add_pretrain(sub)
     return parser
+
+
+def pin_float32() -> None:
+    """Compute float32 in float32, as the JAX commands do: torch lets
+    cuDNN's convs run in TF32 by default, which on the card moved a float32
+    ``analyze``'s cell count and a float32 training step's loss (fault F4,
+    ``PERF.md``)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    pin_float32()
     for flag in ("spatial_shards", "data_parallel"):
         n = getattr(args, flag, 1)
-        if n > 1:
+        if n and n > 1:
             raise SystemExit(
                 f"--{flag.replace('_', '-')} {n}: multi-device runs are not ported "
                 f"to hcunet_tpu_torch yet; run on one device"
@@ -181,10 +260,13 @@ def main(argv=None):
         "analyze": _cmd_analyze_like,
         "batch": _cmd_analyze_like,
         "train-unet": _cmd_train_unet,
+        "train-rcnn": _cmd_train_rcnn,
+        "train-recurrent": _cmd_train_recurrent,
+        "predict-recurrent": _cmd_predict_recurrent,
         "preprocess": _cmd_preprocess,
         "validate": _cmd_validate,
         "study": _cmd_study,
-        "predict-recurrent": _cmd_predict_recurrent,
+        "pretrain-backbone": _cmd_pretrain,
     }
     return commands[args.cmd](args)
 
@@ -282,6 +364,114 @@ def _cmd_train_unet(args):
     trainer.fit(ds)
     trainer.save(args.out)
     print(json.dumps({"checkpoint": args.out}))
+    return 0
+
+
+def _cmd_train_recurrent(args):
+    import dataclasses
+
+    import torch
+
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.data import transforms as t
+    from hcunet_tpu_torch.data.datasets import RecursiveStack
+    from hcunet_tpu_torch.models.unet import init_like_flax
+    from hcunet_tpu_torch.train.trainer import RecurrentTrainer, TrainConfig
+
+    # recurrent recipe (reference tests/r_unet_test.py:20-44): joint crops
+    # only; the vector field is geometry-coupled, so photometric augments
+    # stay on the image
+    ds = RecursiveStack(
+        args.data,
+        joint_transforms=[
+            t.to_float(), t.reshape(), t.nul_crop(rate=1),
+            t.random_crop(args.crop),
+        ],
+        image_transforms=[
+            t.random_gamma((0.7, 1.3)),
+            t.clean_image(),
+            t.normalize(),
+        ],
+    )
+    if args.model == "runet":
+        from hcunet_tpu_torch.models.runet import RecursiveUNet
+
+        cfg = RUNetConfig()
+        if args.timesteps:
+            cfg = dataclasses.replace(cfg, timesteps=args.timesteps)
+        model = RecursiveUNet(cfg)
+    else:
+        from hcunet_tpu_torch.models.rdcnet import RDCNet
+
+        cfg = RDCNetConfig()
+        if args.timesteps:
+            cfg = dataclasses.replace(cfg, timesteps=args.timesteps)
+        model = RDCNet(cfg)
+    # the JAX models' he_normal kernels and zero biases
+    init_like_flax(model, torch.Generator().manual_seed(0), scale=2.0)
+    trainer = RecurrentTrainer(
+        model, None,
+        TrainConfig(learning_rate=args.lr, epochs=args.epochs,
+                    checkpoint_path=args.out),
+        device=args.device,
+    )
+    trainer.fit(ds)
+    trainer.save(args.out)
+    print(json.dumps({"checkpoint": args.out, "model": args.model}))
+    return 0
+
+
+def _cmd_train_rcnn(args):
+    import torch
+
+    from hcunet_tpu_torch.config import DetectorConfig
+    from hcunet_tpu_torch.data import transforms as t
+    from hcunet_tpu_torch.data.datasets import Section
+    from hcunet_tpu_torch.models import detection
+    from hcunet_tpu_torch.models.unet import init_like_flax
+    from hcunet_tpu_torch.train.detection_trainer import (
+        DetectionTrainConfig,
+        DetectionTrainer,
+    )
+    from hcunet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    ds = Section(
+        args.data,
+        image_transforms=[t.to_float(), t.remove_channel()],
+        simple_class=args.simple_class,
+    )
+    n_classes = 3 if args.simple_class else 5
+    cfg = DetectorConfig(num_classes=n_classes)
+    det = detection.Detector(cfg, backbone=args.backbone, device="cpu")
+    # the JAX Detector.init's LeCun-normal kernels (flax's default), zero
+    # biases, identity batch norms but each bottleneck's zero last scale
+    init_like_flax(det, torch.Generator().manual_seed(0), scale=1.0)
+    batch = max(args.batch_size, 1)
+    trainer = DetectionTrainer(
+        det, None,
+        DetectionTrainConfig(
+            learning_rate=args.lr, gamma=args.gamma,
+            classifier_scale=args.scale, epochs=args.epochs,
+        ),
+        steps_per_epoch=max(1, -(-len(ds) // batch)),
+        batch_size=batch,
+        device=args.device,
+    )
+    trainer.fit(ds)
+    save_checkpoint(args.out, trainer.variables, cfg)
+    print(json.dumps({"checkpoint": args.out}))
+    return 0
+
+
+def _cmd_pretrain(args):
+    from hcunet_tpu_torch.train.pretrain import pretrain_backbone, save_backbone
+
+    backbone = pretrain_backbone(
+        steps=args.steps, batch=args.batch, lr=args.lr, width=args.width,
+        device=args.device,
+    )
+    save_backbone(args.out, backbone)
+    print(json.dumps({"backbone": args.out}))
     return 0
 
 

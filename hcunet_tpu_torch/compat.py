@@ -299,8 +299,8 @@ class _CompatRCNN:
     def train(self, mode: bool = True):  # torchvision-detector parity
         if mode:
             raise ValueError(
-                "compat rcnn serves inference; detection training is not "
-                "ported to hcunet_tpu_torch yet"
+                "compat rcnn serves inference; use "
+                "hcunet_tpu_torch.train.detection_trainer for training"
             )
         return self
 

@@ -1,5 +1,4 @@
-"""Faster R-CNN style detector (twin of ``hcunet_tpu/models/detection.py``,
-inference).
+"""Faster R-CNN style detector (twin of ``hcunet_tpu/models/detection.py``).
 
 ``Detector(config).detect(images[B, H, W, 3])`` returns the JAX package's
 dict of ``[B, K, ...]`` tensors — ``boxes`` ``(x1, y1, x2, y2)`` with x the
@@ -18,9 +17,16 @@ The box head flattens its ``[N, C, 7, 7]`` RoI features in torchvision's
 :func:`hcunet_tpu_torch.utils.port_jax.detector_state_dict_from_jax_variables`
 permutes ``fc6`` to match.
 
+``losses(images[1, H, W, 3], gt_boxes, gt_labels, gt_valid)`` is the JAX
+``Detector.losses``: the four torchvision loss terms of one image against
+its ground truth padded to a static ``max_gt``, with the trunk in training
+mode (flax's batch-norm rule), and the trunk's new running statistics
+returned rather than kept (the module's buffers come back as they were),
+as the JAX function returns its ``batch_stats`` update.
+
 Ties are broken as in the JAX package: ``lax.top_k`` takes the lower index
 first, so top-k here is a stable descending sort; the NMS order is a stable
-argsort.  ``losses`` is not ported yet (training).
+argsort; ``torch.argmax`` takes the first maximum, as ``jnp.argmax``.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from torch import nn
 
 from hcunet_tpu_torch.config import DetectorConfig, resolve_device
 from hcunet_tpu_torch.models.fpn import FPN
-from hcunet_tpu_torch.models.resnet import ResNet, SmallBackbone
-from hcunet_tpu_torch.ops.nms import nms_mask
+from hcunet_tpu_torch.models.resnet import BatchNorm, ResNet, SmallBackbone
+from hcunet_tpu_torch.ops.nms import box_iou, nms_mask
 from hcunet_tpu_torch.ops.roi_align import roi_align
 
 LEVELS = ("p2", "p3", "p4", "p5", "p6")
@@ -128,6 +134,11 @@ def clip_boxes(boxes: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def smooth_l1(x: torch.Tensor, beta: float) -> torch.Tensor:
+    ax = torch.abs(x)
+    return torch.where(ax < beta, 0.5 * ax**2 / beta, ax - 0.5 * beta)
 
 
 def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,6 +251,7 @@ class FasterRCNN(nn.Module):
                  backbone_width: int = 64):
         super().__init__()
         self.config = config
+        self.backbone_name = backbone
         self.backbone = BackboneWithFPN(backbone, backbone_width)
         self.rpn = _RPN(256, len(config.anchor_ratios))
 
@@ -258,8 +270,9 @@ class FasterRCNN(nn.Module):
 class Detector(FasterRCNN):
     """The trunk, the RoI heads and the proposal/postprocessing pipeline.
 
-    Built on ``device`` (CUDA unless given) in ``dtype``; the batch norms
-    run with their running statistics (the module is put in eval mode)."""
+    Built on ``device`` (CUDA unless given) in ``dtype``, in eval mode: the
+    batch norms run with their running statistics, except inside
+    :meth:`losses` with ``train=True``."""
 
     RPN_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
     BOX_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -390,3 +403,127 @@ class Detector(FasterRCNN):
             "labels": torch.where(found, labels_f[idx], 0),
             "valid": found,
         }
+
+    # -- training -----------------------------------------------------------
+
+    def losses(
+        self,
+        images: torch.Tensor,
+        gt_boxes: torch.Tensor,
+        gt_labels: torch.Tensor,
+        gt_valid: torch.Tensor,
+        train: bool = True,
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Single-image (B=1) loss dict, ``images`` ``[1, H, W, 3]``
+        channels-last on the detector's device; ``gt_boxes`` ``[G, 4]``,
+        ``gt_labels`` ``[G]`` and ``gt_valid`` ``[G]`` (bool) padded to a
+        static ``G``.
+
+        Returns ``(losses, new_stats)``: the four terms
+        (``loss_objectness``, ``loss_rpn_box_reg``, ``loss_classifier``,
+        ``loss_box_reg``) as float32 scalars with their graph, and, with
+        ``train``, the trunk's new running statistics under their state-dict
+        names (the buffers themselves are left as they were), else ``{}``.
+        Anchors are positive at IoU >= 0.7 and negative below 0.3, each
+        real box's best anchor positive too; the head takes the proposals
+        and the real boxes (no gradient through either), positive at IoU
+        >= 0.5."""
+        cfg = self.config
+        hw = tuple(images.shape[1:3])
+        bns = [(n, m) for n, m in self.backbone.body.named_modules() if isinstance(m, BatchNorm)]
+        start = [(m.running_mean.clone(), m.running_var.clone()) for _n, m in bns]
+        was = self.training
+        self.train(train)
+        try:
+            pyramid, rpn_out = self(images.permute(0, 3, 1, 2))
+        finally:
+            self.train(was)
+        new_stats = {}
+        if train:
+            for (name, m), (mean, var) in zip(bns, start):
+                prefix = f"backbone.body.{name}"
+                new_stats[f"{prefix}.running_mean"] = m.running_mean.clone()
+                new_stats[f"{prefix}.running_var"] = m.running_var.clone()
+                with torch.no_grad():
+                    m.running_mean.copy_(mean)
+                    m.running_var.copy_(var)
+
+        feat_shapes = {lvl: tuple(pyramid[lvl].shape[-2:]) for lvl in LEVELS}
+        anchors_d = generate_anchors(
+            feat_shapes, cfg.anchor_sizes, cfg.anchor_ratios, device=images.device
+        )
+        anchors = torch.cat([anchors_d[lvl] for lvl in LEVELS])
+        # NCHW -> the JAX (row, column, anchor) order, as in _proposals
+        obj_logits = torch.cat(
+            [rpn_out[lvl][0][0].permute(1, 2, 0).reshape(-1) for lvl in LEVELS]
+        ).float()
+        rpn_deltas = torch.cat(
+            [rpn_out[lvl][1][0].permute(1, 2, 0).reshape(-1, 4) for lvl in LEVELS]
+        ).float()
+        gt_boxes = gt_boxes.float()
+
+        # --- RPN targets ---
+        iou = box_iou(anchors, gt_boxes)  # [A, G]
+        iou = torch.where(gt_valid[None, :], iou, -1.0)
+        best_iou = iou.max(dim=1).values
+        best_gt = iou.argmax(dim=1)  # the first maximum, as jnp.argmax
+        pos = best_iou >= 0.7
+        # every real box's best anchor is positive too; a max-scatter, so
+        # that a padded slot (whose argmax is anchor 0) cannot clear a True
+        # written for a real box at the same index
+        force = torch.zeros(anchors.shape[0], device=anchors.device).scatter_reduce(
+            0, iou.argmax(dim=0), gt_valid.float(), "amax"
+        )
+        pos = pos | (force > 0)
+        neg = (best_iou < 0.3) & ~pos
+        matched_gt = gt_boxes[best_gt]
+
+        obj_target = pos.float()
+        obj_weight = (pos | neg).float()
+        bce = (
+            torch.clamp(obj_logits, min=0)
+            - obj_logits * obj_target
+            + torch.log1p(torch.exp(-torch.abs(obj_logits)))
+        )
+        n_sampled = torch.clamp(obj_weight.sum(), min=1.0)
+        loss_objectness = (bce * obj_weight).sum() / n_sampled
+        rpn_reg_target = encode_boxes(anchors, matched_gt, self.RPN_WEIGHTS)
+        loss_rpn_box = (
+            smooth_l1(rpn_deltas - rpn_reg_target, 1.0 / 9.0).sum(dim=1) * pos.float()
+        ).sum() / n_sampled
+
+        # --- proposals for the head, plus the ground-truth boxes ---
+        with torch.no_grad():
+            props, pvalid = self._proposals(rpn_out, anchors_d, hw)
+            props = torch.cat([props[0], gt_boxes])
+            pvalid = torch.cat([pvalid[0], gt_valid])
+            piou = box_iou(props, gt_boxes)
+            piou = torch.where(gt_valid[None, :] & pvalid[:, None], piou, -1.0)
+            p_best_iou = piou.max(dim=1).values
+            p_best_gt = piou.argmax(dim=1)
+            p_pos = p_best_iou >= 0.5
+            p_neg = (p_best_iou < 0.5) & (p_best_iou >= 0.0) & pvalid
+            cls_target = torch.where(p_pos, gt_labels.long()[p_best_gt], 0)
+            head_reg_target = encode_boxes(props, gt_boxes[p_best_gt], self.BOX_WEIGHTS)
+
+        roi_feats = self._roi_features(pyramid, props[None])[0]
+        cls_logits, reg = self.roi_heads(roi_feats.to(self.dtype))
+        logp = torch.log_softmax(cls_logits.float(), dim=-1)
+        ce = -logp.gather(1, cls_target[:, None])[:, 0]
+        cls_weight = (p_pos | p_neg).float()
+        n_roi = torch.clamp(cls_weight.sum(), min=1.0)
+        loss_classifier = (ce * cls_weight).sum() / n_roi
+
+        reg = reg.float().reshape(props.shape[0], cfg.num_classes, 4)
+        reg_sel = reg.gather(1, cls_target[:, None, None].expand(-1, 1, 4))[:, 0]
+        loss_box_reg = (
+            smooth_l1(reg_sel - head_reg_target, 1.0).sum(dim=1) * p_pos.float()
+        ).sum() / n_roi
+
+        losses = {
+            "loss_objectness": loss_objectness,
+            "loss_rpn_box_reg": loss_rpn_box,
+            "loss_classifier": loss_classifier,
+            "loss_box_reg": loss_box_reg,
+        }
+        return losses, new_stats

@@ -4,8 +4,14 @@
 (``conv1``/``bn1``/``layer1..4``, bottlenecks ``conv1..3``/``bn1..3``/
 ``downsample``), so a ``fasterrcnn_resnet50_fpn`` state dict's
 ``backbone.body.*`` loads as it is.  Layers run NCHW (cuDNN's layout); the
-feature dict ``c2..c5`` is NCHW too.  Inference only: batch norm uses its
-running statistics.
+feature dict ``c2..c5`` is NCHW too.  ``self.training`` is the JAX
+``train=`` flag.  The batch norms (:class:`BatchNorm`) keep torch's
+``BatchNorm2d`` names and, in eval mode, its forward with the running
+statistics; in training mode they follow flax's default ``nn.BatchNorm``
+(the JAX trunks' own): the batch's statistics with the biased variance,
+and the running statistics updated in the buffers with momentum 0.99.
+Each bottleneck's last batch norm starts with a zero scale, as the JAX
+block's (the zero-init last BN).
 """
 
 from __future__ import annotations
@@ -16,6 +22,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hcunet_tpu_torch.ops.conv import batch_norm_train, update_running_stats
+
+# flax nn.BatchNorm's defaults, which the JAX trunks keep
+FLAX_BN_MOMENTUM = 0.99
+FLAX_BN_EPS = 1e-5
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (its parameters and buffers, and its eval-mode
+    forward) with flax's training rule: :func:`batch_norm_train` over the
+    channel axis 1 and :func:`update_running_stats` at momentum 0.99."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=FLAX_BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps, channel_axis=1)
+        update_running_stats(self, mean, var, FLAX_BN_MOMENTUM)
+        return y
+
 
 class BottleneckBlock(nn.Module):
     """1x1 → 3x3 (stride) → 1x1 (4x width) with a projected residual where
@@ -24,16 +52,17 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, features, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm(features)
         self.conv2 = nn.Conv2d(features, features, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm(features)
         self.conv3 = nn.Conv2d(features, features * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(features * 4)
+        self.bn3 = BatchNorm(features * 4)
+        nn.init.zeros_(self.bn3.weight)  # the zero-init last BN, as in JAX
         self.downsample = None
         if in_channels != features * 4 or stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, features * 4, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(features * 4),
+                BatchNorm(features * 4),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +80,7 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm(width)
         in_ch = width
         self.out_channels = []
         for stage, n_blocks in enumerate(stage_sizes):
@@ -96,7 +125,7 @@ class SmallBackbone(nn.Module):
         for i in range(4):
             c = width * 2**i
             setattr(self, f"conv{i}_0", nn.Conv2d(in_ch, c, 3, stride=self.strides[i]))
-            setattr(self, f"bn{i}", nn.BatchNorm2d(c))
+            setattr(self, f"bn{i}", BatchNorm(c))
             setattr(self, f"conv{i}_1", nn.Conv2d(c, c, 3))
             in_ch = c
             self.out_channels.append(c)

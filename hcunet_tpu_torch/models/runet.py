@@ -17,8 +17,13 @@ names (``down1``, ``down2_fh``/``down2_fz``, ``down3_fh``/``down3_fz``,
 ``up1_fh``/``up1_fz``, ``up2``, ``out_conv``; ``conv1/batch1/conv2/batch2``
 and ``up_conv`` inside), the names ``hcunet_tpu/utils/port_torch.py``
 reads.  Channels-last ``[B, X, Y, Z, C]``; the same-padding convs are
-:func:`~hcunet_tpu_torch.ops.conv.conv_same` (K1 on CUDA).  Eval mode only:
-batch norm uses its running statistics.
+:func:`~hcunet_tpu_torch.ops.conv.conv_same` (K1 on CUDA).  ``self.training``
+is the JAX ``train=`` flag: in eval mode batch norm uses its running
+statistics; in training mode each timestep normalizes with its own batch's
+statistics and updates the running statistics in its buffers (flax's rule,
+momentum 0.9), one timestep after another, as the JAX ``nn.scan`` carries
+``batch_stats`` through the steps: after T steps the buffers have taken T
+updates.
 
 Parity notes, as in the JAX model:
 * the update ``h_t*z + (-1*z*h)`` is kept verbatim (``r_unet.py:155``);
@@ -37,15 +42,18 @@ from torch import nn
 
 from hcunet_tpu_torch.config import RUNetConfig
 from hcunet_tpu_torch.models.unet import (
+    BN_MOMENTUM,
     conv_weight_channels_last,
     crop_spatial,
     tconv_weight_channels_last,
 )
 from hcunet_tpu_torch.ops.conv import (
     batch_norm_inference,
+    batch_norm_train,
     conv_same,
     conv_transpose_torch,
     max_pool,
+    update_running_stats,
 )
 
 # RUp hard-wires torch padding=2 for its transposed conv (r_unet.py:300)
@@ -55,7 +63,9 @@ UP_PADDING = 2
 class SameConvBNRelu(nn.Module):
     """conv (same padding) → BN → ReLU, the reference ``Down`` half.  It
     holds no parameters: the conv and BN belong to the enclosing block under
-    the reference's names."""
+    the reference's names.  In training mode the batch norm is
+    :func:`batch_norm_train` and the running statistics take the batch's
+    with momentum 0.9, as the JAX block's ``nn.BatchNorm(momentum=0.9)``."""
 
     def __init__(self, padding: int = 1):
         super().__init__()
@@ -66,7 +76,13 @@ class SameConvBNRelu(nn.Module):
             x.to(dtype), conv_weight_channels_last(conv.weight).to(dtype), conv.bias,
             padding=self.padding, accum_dtype=dtype,
         )
-        x = batch_norm_inference(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        if self.training:
+            x, mean, var = batch_norm_train(x.to(dtype), bn.weight, bn.bias, bn.eps)
+            update_running_stats(bn, mean, var, BN_MOMENTUM)
+        else:
+            x = batch_norm_inference(
+                x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
+            )
         return torch.relu(x).to(dtype)
 
 

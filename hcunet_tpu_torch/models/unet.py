@@ -32,6 +32,7 @@ from hcunet_tpu_torch.ops.conv import (
     conv_transpose_torch,
     conv_valid,
     max_pool,
+    update_running_stats,
 )
 
 
@@ -94,9 +95,7 @@ class ConvBNRelu(nn.Module):
         )
         if self.training:
             x, mean, var = batch_norm_train(x.to(dtype), bn.weight, bn.bias, bn.eps)
-            with torch.no_grad():
-                for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
-                    buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * new)
+            update_running_stats(bn, mean, var, BN_MOMENTUM)
         else:
             x = batch_norm_inference(
                 x.to(dtype), bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
@@ -244,3 +243,34 @@ def init_unet(
             )
             m.bias.zero_()
     return model.eval()
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, generator: torch.Generator, scale: float = 2.0) -> nn.Module:
+    """Draw every conv and linear weight of ``model`` from ``generator`` with
+    the distribution of flax's ``variance_scaling(scale, "fan_in",
+    "truncated_normal")`` (``he_normal`` at 2, ``lecun_normal`` at 1: a
+    normal truncated at two of its deviations, of variance ``scale /
+    fan_in``), and zero every bias.  The fan-in is the JAX kernel's: Cin
+    (per group) times the kernel's taps; for a transposed conv the torch
+    weight ``[Cin, Cout, *k]`` gives Cin times the taps.  Batch norms keep
+    their ones and zeros."""
+    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d, nn.Linear)
+    for m in model.modules():
+        if not isinstance(m, convs):
+            continue
+        w = m.weight
+        if isinstance(m, nn.Linear):
+            fan_in = w.shape[1]
+        elif isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            fan_in = w.shape[0] * math.prod(w.shape[2:])
+        else:
+            fan_in = w.shape[1] * math.prod(w.shape[2:])
+        # flax divides by the deviation of a unit normal truncated at +-2
+        std = math.sqrt(scale / fan_in) / 0.87962566103423978
+        draw = torch.empty(w.shape)  # drawn on the host, whatever the device
+        nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=generator)
+        w.copy_(draw)
+        if m.bias is not None:
+            m.bias.zero_()
+    return model

@@ -21,7 +21,7 @@ The recurrent models' same-padding convs (:func:`conv_same`) are valid
 convs of a zero-padded input, so at stride 1 they run on K1 too.
 Transpose convs, strided convs and pooling are plain PyTorch, as the JAX
 package left them to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's
-semantics.
+semantics, and :func:`update_running_stats` flax's running update.
 """
 
 from __future__ import annotations
@@ -452,21 +452,39 @@ def batch_norm_train(
     scale: torch.Tensor,
     bias: torch.Tensor,
     eps: float = 1e-5,
+    channel_axis: int = -1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Train-mode batch norm over the channel (last) axis with flax
-    ``nn.BatchNorm(use_running_average=False)``'s semantics: the statistics
-    over every other axis, in float32, with the fast variance
-    ``E[x^2] - E[x]^2`` clipped at 0 (biased); then
+    """Train-mode batch norm over ``channel_axis`` (the last by default;
+    1 for NCHW) with flax ``nn.BatchNorm(use_running_average=False)``'s
+    semantics: the statistics over every other axis, in float32, with the
+    fast variance ``E[x^2] - E[x]^2`` clipped at 0 (biased); then
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast to ``x``'s
     dtype.  Returns ``(y, mean, var)``; the gradient flows through the
     statistics.  (``F.batch_norm`` keeps the unbiased variance for its
-    running update, so the caller updates the running statistics itself.)"""
+    running update, so the caller updates the running statistics itself,
+    with :func:`update_running_stats`.)"""
     xf = x.float()
-    axes = tuple(range(x.ndim - 1))
+    ax = channel_axis % x.ndim
+    axes = tuple(i for i in range(x.ndim) if i != ax)
+    shape = [1] * x.ndim
+    shape[ax] = -1
     mean = xf.mean(axes)
     var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
+    inv = torch.rsqrt(var + eps) * scale.float()
+    y = (xf - mean.view(shape)) * inv.view(shape) + bias.float().view(shape)
     return y.to(x.dtype), mean, var
+
+
+def update_running_stats(bn, mean: torch.Tensor, var: torch.Tensor, momentum: float) -> None:
+    """flax ``nn.BatchNorm``'s running update, into the buffers of ``bn``
+    (a torch BatchNorm module): ``new = momentum * old + (1 - momentum) *
+    batch`` for the mean and the biased variance of
+    :func:`batch_norm_train`.  flax's ``momentum`` is torch's ``1 -
+    momentum``: 0.9 in the U-Net and the recurrent family, flax's default
+    0.99 in the detector's trunks."""
+    with torch.no_grad():
+        for buf, new in ((bn.running_mean, mean), (bn.running_var, var)):
+            buf.copy_(momentum * buf + (1 - momentum) * new.detach())
 
 
 def fold_bn_into_conv(

@@ -51,9 +51,21 @@ def flat(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
 def bn_cancelled(path: Path) -> bool:
     """A bias that reaches a train-mode batch norm only through linear
     layers, as a constant per channel, which the batch norm subtracts again:
-    every conv bias but the output conv's (``up_bias`` through the next
-    conv).  Its gradient is 0 up to rounding."""
-    return path[-1] == "up_bias" or (path[-1] == "bias" and path[-2].startswith("ConvBNRelu"))
+    every conv bias of the U-Net and the RecursiveUNet but the output
+    conv's, and the U-Net's ``up_bias`` (``("up<i>", "up_bias")``) through
+    the next (valid) conv.  The RecursiveUNet's ``up_bias`` (under its
+    scanned ``step``) meets a zero-padded conv, whose output is not
+    constant near the borders, and RDCNet has no batch norm: neither is
+    cancelled.  In the detector's small backbone (``body``) every other
+    conv (``Conv_0``, ``Conv_2``, ...) meets a batch norm.  A cancelled
+    bias's gradient is 0 up to rounding."""
+    if path[-1] == "up_bias":
+        return len(path) == 2 and path[0].startswith("up")
+    if path[-1] != "bias":
+        return False
+    if len(path) >= 3 and path[-3] == "body" and path[-2].startswith("Conv_"):
+        return int(path[-2][5:]) % 2 == 0
+    return path[-2].startswith(("ConvBNRelu", "SameConvBNRelu"))
 
 
 def gradient_gaps(got: Mapping, want: Mapping) -> Dict[Path, float]:

@@ -1,4 +1,4 @@
-"""U-Net training (twin of ``hcunet_tpu/train/trainer.py``, single device).
+"""Training engines (twin of ``hcunet_tpu/train/trainer.py``, single device).
 
 :class:`UNetTrainer` fits a :class:`~hcunet_tpu_torch.models.unet.UNet` on
 Stack-style ``(image, mask, pwl)`` samples with the pwl-weighted BCE (and
@@ -15,9 +15,17 @@ The optimizer matches ``_make_tx``'s optax chain: ``torch.optim.Adam``, or
 learning rate every ``steps_per_epoch`` steps.  optax reads the step count
 before it increments it, so the schedule steps after the optimizer.
 
+:class:`RecurrentTrainer` is the r-unet/RDCNet recipe
+(``tests/r_unet_test.py:51-54`` of the reference): the pwl-BCE of the
+probability channel ``out[..., 0:1]`` plus the MSE of the vector channels
+``out[..., 2:5]``, on ``(image, mask, pwl, com, vec)`` samples, for a
+:class:`~hcunet_tpu_torch.models.runet.RecursiveUNet` (train-mode batch norm
+through every timestep) or an :class:`~hcunet_tpu_torch.models.rdcnet.RDCNet`;
+each same-padding conv runs K1 forward and K1's input gradient on CUDA.
+
 Checkpoints and training states use the JAX package's formats
 (:mod:`hcunet_tpu_torch.utils.checkpoint`), so either package resumes the
-other's.  ``RecurrentTrainer`` waits for the recurrent models.
+other's.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from hcunet_tpu_torch.config import resolve_device
-from hcunet_tpu_torch.train.losses import cross_entropy, dice
+from hcunet_tpu_torch.train.losses import cross_entropy, dice, mse_loss
 from hcunet_tpu_torch.utils.logging import Metrics, get_logger
 
 log = get_logger(__name__)
@@ -86,11 +94,7 @@ class UNetTrainer:
         self.cfg = cfg
         if variables is not None:
             if "params" in variables:
-                from hcunet_tpu_torch.utils.port_jax import (
-                    unet_state_dict_from_jax_variables,
-                )
-
-                variables = unet_state_dict_from_jax_variables(variables, model.config)
+                variables = self._state_dict_from_jax(variables)
             model.load_state_dict(variables)
         model.to(self.device)
         self.opt, self.schedule = _make_tx(cfg, model.parameters())
@@ -115,12 +119,23 @@ class UNetTrainer:
             self.schedule.step()
         return float(loss.detach())
 
+    def _state_dict_from_jax(self, variables: Mapping) -> Dict:
+        """The model's state dict from a JAX variable tree (or a tree of
+        parameters alone, as an optimizer moment)."""
+        from hcunet_tpu_torch.utils.port_jax import unet_state_dict_from_jax_variables
+
+        return unet_state_dict_from_jax_variables(variables, self.model.config)
+
+    def _jax_from_state_dict(self, sd: Mapping) -> Dict:
+        """Inverse of :meth:`_state_dict_from_jax`."""
+        from hcunet_tpu_torch.utils.port_jax import jax_variables_from_unet_state_dict
+
+        return jax_variables_from_unet_state_dict(sd, self.model.config)
+
     @property
     def variables(self) -> Dict:
         """The JAX ``{"params", "batch_stats"}`` tree of the model, as numpy."""
-        from hcunet_tpu_torch.utils.port_jax import jax_variables_from_unet_state_dict
-
-        return jax_variables_from_unet_state_dict(self.model.state_dict(), self.model.config)
+        return self._jax_from_state_dict(self.model.state_dict())
 
     @property
     def opt_state(self) -> Dict:
@@ -130,7 +145,8 @@ class UNetTrainer:
 
         count = None if self.schedule is None else self.schedule.last_epoch
         return optax_adam_state_from_torch(
-            self.opt, self.model, self.model.config, self.cfg.weight_decay, count
+            self.opt, self.model, lambda sd: self._jax_from_state_dict(sd)["params"],
+            self.cfg.weight_decay, count,
         )
 
     def _iter_batches(self, dataset):
@@ -197,10 +213,7 @@ class UNetTrainer:
         """Resume from :meth:`save_training_state`'s file, or the JAX
         trainer's, for the same model and ``TrainConfig``."""
         from hcunet_tpu_torch.utils._flax_msgpack import msgpack_restore
-        from hcunet_tpu_torch.utils.port_jax import (
-            torch_adam_state_from_optax,
-            unet_state_dict_from_jax_variables,
-        )
+        from hcunet_tpu_torch.utils.port_jax import torch_adam_state_from_optax
 
         with open(path, "rb") as f:
             state = msgpack_restore(f.read())
@@ -210,11 +223,10 @@ class UNetTrainer:
                 f"the training state's optimizer chain has {len(state['opt_state'])} "
                 f"entries; this TrainConfig's has {want}"
             )
-        self.model.load_state_dict(
-            unet_state_dict_from_jax_variables(state["variables"], self.model.config)
-        )
+        self.model.load_state_dict(self._state_dict_from_jax(state["variables"]))
         opt_sd, count = torch_adam_state_from_optax(
-            state["opt_state"], self.opt, self.model, self.model.config
+            state["opt_state"], self.opt, self.model,
+            lambda params: self._state_dict_from_jax({"params": params}),
         )
         self.opt.load_state_dict(opt_sd)
         if (count is None) != (self.schedule is None):
@@ -224,3 +236,66 @@ class UNetTrainer:
             for group, base in zip(self.opt.param_groups, self.schedule.base_lrs):
                 group["lr"] = base * self.schedule.lr_lambdas[0](count)
 
+
+
+class RecurrentTrainer(UNetTrainer):
+    """r-unet/RDCNet recipe: ``out[..., 0]`` is the probability channel
+    trained with pwl-BCE; ``out[..., 2:5]`` are the vector channels trained
+    with MSE (``tests/r_unet_test.py:51-54``).  ``model``: the port's
+    ``RecursiveUNet`` or ``RDCNet``; ``variables``: the JAX tree of that
+    model (``{"params", "batch_stats"}``, ``{"params"}`` for RDCNet) or its
+    state dict."""
+
+    def _family(self):
+        from hcunet_tpu_torch.models.rdcnet import RDCNet
+        from hcunet_tpu_torch.models.runet import RecursiveUNet
+        from hcunet_tpu_torch.utils import port_jax
+
+        if isinstance(self.model, RecursiveUNet):
+            return (port_jax.runet_state_dict_from_jax_variables,
+                    port_jax.jax_variables_from_runet_state_dict)
+        if isinstance(self.model, RDCNet):
+            return (port_jax.rdcnet_state_dict_from_jax_variables,
+                    port_jax.jax_variables_from_rdcnet_state_dict)
+        raise TypeError(f"RecurrentTrainer trains RecursiveUNet or RDCNet, not "
+                        f"{type(self.model).__name__}")
+
+    def _state_dict_from_jax(self, variables: Mapping) -> Dict:
+        return self._family()[0](variables)
+
+    def _jax_from_state_dict(self, sd: Mapping) -> Dict:
+        tree = self._family()[1](sd)
+        # the JAX trainer keeps an empty batch_stats for a model without BN
+        return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
+
+    def train_step(self, image, mask, pwl, vec) -> float:  # type: ignore[override]
+        """One step on a batch; returns the loss before the step."""
+        cfg, dev = self.cfg, self.device
+        image = torch.as_tensor(image, device=dev, dtype=torch.float32)
+        mask = torch.as_tensor(mask, device=dev)
+        pwl = None if pwl is None else torch.as_tensor(pwl, device=dev)
+        vec = torch.as_tensor(vec, device=dev, dtype=torch.float32)
+        self.model.train()
+        out = self.model(image)
+        loss = cross_entropy(out[..., 0:1], mask, pwl, method=cfg.loss_method)
+        loss = loss + mse_loss(out[..., 2:5], vec)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+        if self.schedule is not None:
+            self.schedule.step()
+        return float(loss.detach())
+
+    def fit(self, dataset, epochs: Optional[int] = None) -> List[float]:  # type: ignore[override]
+        """``dataset``: indexable of ``(image, mask, pwl, com, vec)``
+        channels-last batches.  Returns per-epoch summed losses, as the JAX
+        ``RecurrentTrainer.fit`` (no periodic checkpoint)."""
+        epochs = epochs if epochs is not None else self.cfg.epochs
+        summed: List[float] = []
+        for e in range(epochs):
+            total = 0.0
+            for image, mask, pwl, _com, vec in self._iter_batches(dataset):
+                total += self.train_step(image, mask, pwl, vec)
+            summed.append(total)
+            self.metrics.write(epoch=e, summed_loss=total)
+        return summed

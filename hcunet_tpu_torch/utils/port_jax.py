@@ -23,7 +23,7 @@ state crosses with the same rules (:func:`torch_adam_state_from_optax`,
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -178,16 +178,17 @@ def runet_state_dict_from_jax_variables(variables: Mapping) -> Dict[str, torch.T
     """State dict of :class:`hcunet_tpu_torch.models.runet.RecursiveUNet`
     (the reference ``RecursiveUnet``'s names) from the JAX model's
     ``{"params", "batch_stats"}`` tree, whose blocks sit under the scanned
-    ``step``."""
+    ``step``; a tree without ``batch_stats`` (an optimizer moment) gives
+    the parameters alone."""
     params = variables["params"]["step"]
-    stats = variables["batch_stats"]["step"]
+    stats = variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
     for scope, name in _RUNET_BLOCKS:
         p = _scope(params, scope)
         if "up_kernel" in p:
             sd[f"{name}.up_conv.weight"] = _tconv_to_torch(p["up_kernel"])
             sd[f"{name}.up_conv.bias"] = _t(p["up_bias"])
-        _put_convbn(sd, name, p, _scope(stats, scope), "SameConvBNRelu")
+        _put_convbn(sd, name, p, stats and _scope(stats["step"], scope), "SameConvBNRelu")
     sd["out_conv.weight"] = _conv_to_torch(params["out_kernel"])
     sd["out_conv.bias"] = _t(params["out_bias"])
     return sd
@@ -197,7 +198,9 @@ def jax_variables_from_runet_state_dict(sd: Mapping) -> Dict:
     """Inverse of :func:`runet_state_dict_from_jax_variables`: the JAX
     ``{"params": {"step": ...}, "batch_stats": {"step": ...}}`` tree as
     numpy arrays (what the JAX package's
-    ``runet_variables_from_torch_state_dict`` gives for the same dict)."""
+    ``runet_variables_from_torch_state_dict`` gives for the same dict);
+    ``{"params"}`` alone where ``sd`` holds no running statistics."""
+    with_stats = "down1.batch1.running_mean" in sd
     params: Dict = {"fh": {}, "fz": {}}
     stats: Dict = {"fh": {}, "fz": {}}
     for scope, name in _RUNET_BLOCKS:
@@ -208,10 +211,12 @@ def jax_variables_from_runet_state_dict(sd: Mapping) -> Dict:
         if f"{name}.up_conv.weight" in sd:
             p["up_kernel"] = _tconv_to_jax(sd[f"{name}.up_conv.weight"])
             p["up_bias"] = _np(sd[f"{name}.up_conv.bias"])
-        _get_convbn(sd, name, p, s, "SameConvBNRelu", True)
+        _get_convbn(sd, name, p, s, "SameConvBNRelu", with_stats)
         p_parent[leaf], s_parent[leaf] = p, s
     params["out_kernel"] = _conv_to_jax(sd["out_conv.weight"])
     params["out_bias"] = _np(sd["out_conv.bias"])
+    if not with_stats:
+        return {"params": {"step": params}}
     return {"params": {"step": params}, "batch_stats": {"step": stats}}
 
 
@@ -263,7 +268,7 @@ def jax_variables_from_rdcnet_state_dict(sd: Mapping) -> Dict:
 def optax_adam_state_from_torch(
     optimizer: torch.optim.Optimizer,
     model: torch.nn.Module,
-    config: UNetConfig,
+    to_jax_params: Callable[[Mapping], Dict],
     weight_decay: float = 0.0,
     schedule_count: int | None = None,
 ) -> Dict:
@@ -271,8 +276,10 @@ def optax_adam_state_from_torch(
     leaves) of the optax Adam/AdamW chain that matches ``optimizer``, a
     ``torch.optim.Adam``/``AdamW`` over ``model.parameters()`` in one group:
     ``{"0": {"count", "mu", "nu"}, ...}`` with the moments in the JAX
-    parameter tree's layout.  ``schedule_count``: the learning-rate
-    schedule's step count, None for a constant rate.
+    parameter tree's layout, which ``to_jax_params`` (a state dict of the
+    model's parameters -> the JAX ``params`` tree) gives.
+    ``schedule_count``: the learning-rate schedule's step count, None for a
+    constant rate.
 
     The chain is that of ``hcunet_tpu/train/trainer.py::_make_tx``:
     ``optax.adam`` is ``(ScaleByAdamState, <lr>)`` and ``optax.adamw``
@@ -293,13 +300,7 @@ def optax_adam_state_from_torch(
         raise ValueError(f"parameters at different Adam steps {sorted(steps)}")
     count = np.asarray(steps.pop(), np.int32)
     last = 2 if weight_decay else 1
-    out = {
-        "0": {
-            "count": count,
-            "mu": jax_variables_from_unet_state_dict(mu, config)["params"],
-            "nu": jax_variables_from_unet_state_dict(nu, config)["params"],
-        }
-    }
+    out = {"0": {"count": count, "mu": to_jax_params(mu), "nu": to_jax_params(nu)}}
     for i in range(1, last + 1):
         out[str(i)] = {}
     if schedule_count is not None:
@@ -311,17 +312,18 @@ def torch_adam_state_from_optax(
     opt_state: Mapping,
     optimizer: torch.optim.Optimizer,
     model: torch.nn.Module,
-    config: UNetConfig,
+    to_state_dict: Callable[[Mapping], Dict],
 ) -> Tuple[Dict, int | None]:
     """Inverse of :func:`optax_adam_state_from_torch`: a state dict that
     ``optimizer.load_state_dict`` takes (its param groups kept), and the
     schedule's step count (None when the chain has no schedule state).
     ``opt_state``: the optax chain's state in state-dict form, as
-    ``msgpack_restore`` returns it."""
+    ``msgpack_restore`` returns it; ``to_state_dict``: a JAX ``params``
+    tree -> the model's state dict of those parameters."""
     adam = opt_state["0"]
     count = int(np.asarray(adam["count"]))
-    mu = unet_state_dict_from_jax_variables({"params": adam["mu"]}, config)
-    nu = unet_state_dict_from_jax_variables({"params": adam["nu"]}, config)
+    mu = to_state_dict(adam["mu"])
+    nu = to_state_dict(adam["nu"])
     sd = optimizer.state_dict()
     state = {}
     if count:
@@ -360,20 +362,16 @@ def _put_linear(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def detector_state_dict_from_jax_variables(
-    variables: Mapping, backbone: str = "resnet50", fpn_channels: int = 256
+def backbone_state_dict_from_jax(
+    backbone_variables: Mapping, backbone: str = "resnet50", prefix: str = "backbone.body"
 ) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`hcunet_tpu_torch.models.detection.Detector`
-    (torchvision's ``fasterrcnn_resnet50_fpn`` names) from the JAX
-    ``Detector``'s ``{"trunk", "head"}`` variable tree, for the ``resnet50``
-    backbone at any width and for ``small``.
-
-    ``fc6`` is permuted from the JAX (H, W, C) flattening of the RoI
-    features to torchvision's (C, H, W)."""
-    tp, ts = variables["trunk"]["params"], variables["trunk"]["batch_stats"]
-    body_p, body_s = tp["body"], ts["body"]
+    """The trunk body's state dict (torchvision's ``resnet50`` names, or the
+    small backbone's, under ``prefix``) from the JAX body's ``{"params",
+    "batch_stats"}`` tree: the ``body`` scope of the JAX ``Detector``'s
+    trunk, or what ``train/pretrain.py::pretrain_backbone`` returns."""
+    body_p, body_s = backbone_variables["params"], backbone_variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-    body = "backbone.body"
+    body = prefix
     if backbone == "resnet50":
         _put_conv(sd, f"{body}.conv1", body_p["stem_conv"])
         _put_bn(sd, f"{body}.bn1", body_p["stem_bn"], body_s["stem_bn"])
@@ -398,7 +396,61 @@ def detector_state_dict_from_jax_variables(
             _put_conv(sd, f"{body}.conv{i}_1", body_p[f"Conv_{2 * i + 1}"])
     else:
         raise ValueError(f"unknown backbone {backbone}")
+    return sd
 
+
+def jax_backbone_from_state_dict(
+    sd: Mapping, backbone: str = "resnet50", prefix: str = "backbone.body"
+) -> Dict:
+    """Inverse of :func:`backbone_state_dict_from_jax`: the JAX body's
+    ``{"params", "batch_stats"}`` tree (numpy leaves) from the state dict
+    entries under ``prefix``."""
+    body_p: Dict = {}
+    body_s: Dict = {}
+    body = prefix
+    if backbone == "resnet50":
+        body_p["stem_conv"] = _conv_params(sd, f"{body}.conv1")
+        body_p["stem_bn"], body_s["stem_bn"] = _bn_to_jax(sd, f"{body}.bn1")
+        blocks = sorted({  # (stage, block) of every "<prefix>.layer<s>.<b>...."
+            (int(k[len(body) + 1:].split(".")[0][5:]), int(k[len(body) + 1:].split(".")[1]))
+            for k in sd if k.startswith(f"{body}.layer")
+        })
+        for stage, b in blocks:
+            t = f"{body}.layer{stage}.{b}"
+            name = f"stage{stage + 1}_block{b}"
+            bp: Dict = {}
+            bs: Dict = {}
+            for i in range(3):
+                bp[f"Conv_{i}"] = _conv_params(sd, f"{t}.conv{i + 1}")
+                bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{t}.bn{i + 1}")
+            if f"{t}.downsample.0.weight" in sd:
+                bp["downsample_conv"] = _conv_params(sd, f"{t}.downsample.0")
+                bp["downsample_bn"], bs["downsample_bn"] = _bn_to_jax(sd, f"{t}.downsample.1")
+            body_p[name], body_s[name] = bp, bs
+    elif backbone == "small":
+        for i in range(4):
+            body_p[f"Conv_{2 * i}"] = _conv_params(sd, f"{body}.conv{i}_0")
+            body_p[f"BatchNorm_{i}"], body_s[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{body}.bn{i}")
+            body_p[f"Conv_{2 * i + 1}"] = _conv_params(sd, f"{body}.conv{i}_1")
+    else:
+        raise ValueError(f"unknown backbone {backbone}")
+    return {"params": body_p, "batch_stats": body_s}
+
+
+def detector_state_dict_from_jax_variables(
+    variables: Mapping, backbone: str = "resnet50", fpn_channels: int = 256
+) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`hcunet_tpu_torch.models.detection.Detector`
+    (torchvision's ``fasterrcnn_resnet50_fpn`` names) from the JAX
+    ``Detector``'s ``{"trunk", "head"}`` variable tree, for the ``resnet50``
+    backbone at any width and for ``small``.
+
+    ``fc6`` is permuted from the JAX (H, W, C) flattening of the RoI
+    features to torchvision's (C, H, W)."""
+    tp, ts = variables["trunk"]["params"], variables["trunk"]["batch_stats"]
+    sd: Dict[str, torch.Tensor] = backbone_state_dict_from_jax(
+        {"params": tp["body"], "batch_stats": ts["body"]}, backbone
+    )
     for i, lvl in enumerate(("c2", "c3", "c4", "c5")):
         _put_conv(sd, f"backbone.fpn.inner_blocks.{i}.0", tp["fpn"][f"lateral_{lvl}"])
     for i, lvl in enumerate(("p2", "p3", "p4", "p5")):
@@ -445,35 +497,8 @@ def jax_variables_from_detector_state_dict(
     leaves) from the port's detector state dict: the inverse of
     :func:`detector_state_dict_from_jax_variables`, so that a detector
     checkpoint written by the port loads in the JAX package."""
-    body_p: Dict = {}
-    body_s: Dict = {}
-    body = "backbone.body"
-    if backbone == "resnet50":
-        body_p["stem_conv"] = _conv_params(sd, f"{body}.conv1")
-        body_p["stem_bn"], body_s["stem_bn"] = _bn_to_jax(sd, f"{body}.bn1")
-        blocks = sorted({  # (stage, block) of every "backbone.body.layer<s>.<b>...."
-            (int(k.split(".")[2][5:]), int(k.split(".")[3]))
-            for k in sd if k.startswith(f"{body}.layer")
-        })
-        for stage, b in blocks:
-            t = f"{body}.layer{stage}.{b}"
-            name = f"stage{stage + 1}_block{b}"
-            bp: Dict = {}
-            bs: Dict = {}
-            for i in range(3):
-                bp[f"Conv_{i}"] = _conv_params(sd, f"{t}.conv{i + 1}")
-                bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{t}.bn{i + 1}")
-            if f"{t}.downsample.0.weight" in sd:
-                bp["downsample_conv"] = _conv_params(sd, f"{t}.downsample.0")
-                bp["downsample_bn"], bs["downsample_bn"] = _bn_to_jax(sd, f"{t}.downsample.1")
-            body_p[name], body_s[name] = bp, bs
-    elif backbone == "small":
-        for i in range(4):
-            body_p[f"Conv_{2 * i}"] = _conv_params(sd, f"{body}.conv{i}_0")
-            body_p[f"BatchNorm_{i}"], body_s[f"BatchNorm_{i}"] = _bn_to_jax(sd, f"{body}.bn{i}")
-            body_p[f"Conv_{2 * i + 1}"] = _conv_params(sd, f"{body}.conv{i}_1")
-    else:
-        raise ValueError(f"unknown backbone {backbone}")
+    body = jax_backbone_from_state_dict(sd, backbone)
+    body_p, body_s = body["params"], body["batch_stats"]
 
     fpn = {}
     for i, lvl in enumerate(("c2", "c3", "c4", "c5")):

@@ -147,7 +147,7 @@ def _options(sub):
 
 
 # the JAX command line's subcommands whose back ends the port has not yet
-NOT_PORTED = ("train-rcnn", "train-recurrent", "pretrain-backbone", "bench")
+NOT_PORTED = ("bench",)
 
 
 def test_parsers_match_jax():
@@ -159,7 +159,8 @@ def test_parsers_match_jax():
         got, want = _options(sub), _options(jsubs[name])
         device = got.pop("device", None)
         assert got == want, name
-        if name in ("analyze", "batch", "train-unet", "validate", "predict-recurrent"):
+        if name in ("analyze", "batch", "train-unet", "validate", "predict-recurrent",
+                    "train-rcnn", "train-recurrent", "pretrain-backbone"):
             assert device == (("--device",), "_StoreAction", "cuda", None, None, None, False, None)
         else:
             assert device is None, name
@@ -169,6 +170,8 @@ def test_parsers_match_jax():
     ["analyze", "v.tif", "--unet", "u", "--spatial-shards", "2"],
     ["batch", "root", "--unet", "u", "--spatial-shards", "2"],
     ["train-unet", "data", "--data-parallel", "2"],
+    ["train-recurrent", "data", "--data-parallel", "2"],
+    ["train-rcnn", "data", "--data-parallel", "2"],
 ])
 def test_multi_device_flags_exit_not_ported(argv):
     with pytest.raises(SystemExit, match="not ported"):

@@ -319,6 +319,99 @@ def test_conv3d_valid_input_grad_matches_plain(cuda, layer, dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# K1's input gradient at the recurrent family's training shapes
+# (conv_same: the gradient of the zero-padded input), (kernel, dilation,
+# Cin, Cout): the RecursiveUNet's 3^3 convs (Cin 9-64) and 1^3 out conv,
+# RDCNet's squeeze, its five dilated 5^3 convs, its merge and its 3^3
+# output conv; bf16 takes the ring path where Cout % 8 == 0
+RECURRENT_GRADS = [
+    (3, 1, 9, 16), (3, 1, 16, 16), (3, 1, 16, 32), (3, 1, 32, 32), (3, 1, 32, 64),
+    (3, 1, 64, 64), (3, 1, 64, 32), (3, 1, 32, 16), (1, 1, 16, 5),
+    (1, 1, 20, 10), *[(5, d, 10, 10) for d in range(1, 6)], (1, 1, 50, 10), (3, 1, 10, 10),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(RECURRENT_GRADS)),
+                         ids=[f"k{k}d{d}c{ci}-{co}" for k, d, ci, co in RECURRENT_GRADS])
+def test_conv3d_valid_input_grad_recurrent_shapes_match_plain(cuda, case, dtype):
+    """K1 as the input gradient of a same-padding conv (the output gradient
+    padded by d (k - 1), the flipped kernel), against the plain version, at
+    K1's usual tolerances, on the path named for Cin' = Cout."""
+    k, d, cin, cout = RECURRENT_GRADS[case]
+    rng = np.random.default_rng(400 + case)
+    gy = torch.from_numpy(rng.standard_normal((1, 12, 11, 6, cout), np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((k, k, k, cin, cout), np.float32) / np.sqrt(k**3 * cin))
+    w = w.to(cuda, dtype)
+    route = conv3d_valid_route(dtype, cout, cin)
+    before = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+    got = conv3d_valid_input_grad(gy, w, d)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID_INPUT_GRAD.route_launches == {**before, route: before[route] + 1}
+    want = conv3d_valid_input_grad_plain(gy, w, d)
+    assert got.shape == want.shape == (1, *(n + d * (k - 1) for n in (12, 11, 6)), cin)
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dilation", [1, 5])
+def test_conv_same_gradient_goes_through_k1(cuda, dilation):
+    """A same-padding conv that needs a gradient runs K1 forward and K1 for
+    its input gradient, and its gradients (x, w, b) match plain autograd
+    through the plain version (TF32 off) within 1e-5 of their scale."""
+    from hcunet_tpu_torch.ops.conv import conv_same
+
+    rng = np.random.default_rng(dilation)
+    x0 = torch.from_numpy(rng.standard_normal((1, 12, 11, 6, 10), np.float32)).to(cuda)
+    w0 = torch.from_numpy(rng.standard_normal((5, 5, 5, 10, 10), np.float32) / 35).to(cuda)
+    b0 = torch.from_numpy(rng.standard_normal(10, np.float32)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal((1, 12, 11, 6, 10), np.float32)).to(cuda)
+    grads = []
+    for conv in (conv3d_valid, conv3d_valid_plain):
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        fwd, grad = CONV3D_VALID.launches, CONV3D_VALID_INPUT_GRAD.launches
+        out = conv_same(x, w, b, padding=2 * dilation, dilation=dilation, relu=True, conv=conv)
+        (out * r).sum().backward()
+        torch.cuda.synchronize()
+        assert (CONV3D_VALID.launches - fwd, CONV3D_VALID_INPUT_GRAD.launches - grad) == (
+            (1, 1) if conv is conv3d_valid else (0, 0))
+        grads.append((x.grad, w.grad, b.grad))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("family", ["runet", "rdcnet"])
+def test_recurrent_training_step_launches(cuda, family):
+    """One ``RecurrentTrainer`` step of one timestep on the card: the
+    RecursiveUNet launches K1 17 times forward (its transposed convs are
+    cuDNN's) and 16 times for input gradients (none for the first conv of
+    timestep 0), RDCNet 8 and 8, all on the basic path in float32; the
+    loss is finite."""
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.train.trainer import RecurrentTrainer, TrainConfig
+
+    torch.manual_seed(0)
+    if family == "runet":
+        model, want = RecursiveUNet(RUNetConfig(timesteps=1)), (17, 16)
+    else:
+        model, want = RDCNet(RDCNetConfig(timesteps=1)), (8, 8)
+    trainer = RecurrentTrainer(model, cfg=TrainConfig(log_every=0), device=cuda)
+    x = torch.randn((1, 32, 32, 6, 4), device=cuda)
+    mask = (torch.rand((1, 32, 32, 6, 1), device=cuda) > 0.5).float()
+    vec = torch.randn((1, 32, 32, 6, 3), device=cuda)
+    fwd, grad = dict(CONV3D_VALID.route_launches), dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+    loss = trainer.train_step(x, mask, torch.ones_like(mask), vec)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    assert {r: n - fwd[r] for r, n in CONV3D_VALID.route_launches.items()} == {
+        "basic": want[0], "ring": 0}
+    assert {r: n - grad[r] for r, n in CONV3D_VALID_INPUT_GRAD.route_launches.items()} == {
+        "basic": want[1], "ring": 0}
+
+
 @pytest.mark.parametrize("groups", [1, 2])
 def test_conv_gradient_goes_through_k1(cuda, groups):
     """On the card a conv whose weight needs a gradient runs K1 forward and

@@ -35,12 +35,12 @@ leaked = sorted(k for k in sys.modules
                 if k in ("jax", "msgpack", "optax", "hcunet_tpu")
                 or k.startswith(("jax.", "jaxlib", "flax", "msgpack.", "optax.", "hcunet_tpu.", "hcat")))
 print(len(names), leaked)
-assert len(names) >= 57, names
+assert len(names) >= 60, names
 for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "utils.checkpoint",
           "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms",
           "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling",
           "models.runet", "models.rdcnet", "infer.compile_recurrent", "infer.vector_cluster",
-          "ops.peaks"):
+          "ops.peaks", "train.detection_trainer", "train.pretrain", "analysis.detection_metrics"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -52,7 +52,8 @@ def test_port_imports_no_jax_or_jax_package():
     (command line, facade, batch, validation, profiling) and the recurrent
     family's (models, serving forward, host clustering) among them, and
     check that neither JAX, flax, optax, msgpack nor the JAX package came
-    with it."""
+    with it; the detection and recurrent training (detection trainer,
+    backbone pretraining, detection metrics) among them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL],
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
