@@ -10,8 +10,8 @@ toolkit::
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
 ``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
 (9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
-``rtrain`` (14) and ``dtrain`` (15); phases 1, 2 (only the kernels the
-chosen phases launch) and 16 always run.  A run of fewer
+``rtrain`` (14), ``dtrain`` (15) and ``mesh`` (16); phases 1, 2 (only the
+kernels the chosen phases launch) and 17 always run.  A run of fewer
 than all phases reports no launch counts (they are the whole main path's)
 and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
@@ -89,10 +89,11 @@ Phases (any failure exits non-zero):
    of the device stages on one chunk, a timed run (K1 15 launches per tile
    batch), a resume from its journal
    (K1 0 launches, the same cells), a float32-transfer run without overlap
-   under ``torch.profiler`` on the timed run's first chunk alone, whose
-   mask the uint16 run's must match there within one half quantum, and the
-   ``"fused"`` and ``"materialized"`` backends on the first quarter of
-   that chunk's map, which must give equal labels; on the fitted weights of phase 10 where it ran
+   and without the detector under ``torch.profiler`` on the timed run's
+   first chunk alone, whose mask the uint16 run's must match there within
+   one half quantum, and the ``"fused"`` and ``"materialized"`` backends on
+   the first eighth of that chunk's map, which must give equal labels; on
+   the fitted weights of phase 10 where it ran
    (as the JAX bench does), else on the random ones;
 12. the user entry points on the fitted weights of phase 10 where it ran,
     else the seeded ones, saved as a checkpoint beside the detector of
@@ -103,7 +104,9 @@ Phases (any failure exits non-zero):
     path, and once more under ``torch.profiler`` with cuDNN free to pick
     its algorithms (fault F4: its map and cells, and those of the command
     at torch's TF32 defaults and of ``analyze()`` itself at them, against
-    the checked run's); ``validate`` and ``train-unet`` (1 epoch, crop 128 x
+    the checked run's; ``analyze()`` at torch's defaults must give the map
+    within 1e-5 and the same ``cells.csv``, since the library turns TF32
+    off for its own calls); ``validate`` and ``train-unet`` (1 epoch, crop 128 x
     128 x 12) on a 2-sample
     ``.npy`` Stack; ``run_batch`` over a ``.npy`` scene with the command
     line's model loading, a second pass all cached; the ``hcat`` facade's
@@ -146,12 +149,29 @@ Phases (any failure exits non-zero):
     ``seed_detector_backbone``; ``train-rcnn`` and ``pretrain-backbone``
     through ``cli.main``, and the detector checkpoint through ``analyze
     --detector``;
-16. print one JSON line of kernel rows (``launches``: the count over the
+16. the multi-device paths (``mesh_phase``) over a mesh of distinct cards
+    where the machine has enough, else of the card repeated (printed;
+    times on one card are no scaling figure): ``Segmenter(mesh=spatial 2)``
+    on a 1152^2 x 15 request at full width against one device (float32
+    within 1e-5 of the output's scale, bf16 within 1 %, K1 15 launches per
+    tile batch of every shard); ``analyze(mesh=spatial 2)`` on the ``cli``
+    phase's scene in float32 with the ResNet50-FPN detector (the map within
+    1e-5, ``cells.csv`` byte-equal, every chunk sharded);
+    ``compile_recurrent_apply(mesh=spatial 2, split_x=2)`` for both
+    families at 256^2 x 10 against ``split_x=2`` on one device (float32
+    within 1e-5 of the scale, bf16 within 1 %); ``UNetTrainer`` on the
+    2 x 2 x 2 mesh (5 float32 steps at the ``train`` crop),
+    ``RecurrentTrainer`` (RDCNet, 3 steps) and ``DetectionTrainer``
+    (ResNet50-FPN, 512^2, 2 steps) on data 2, each against one device on
+    the global batch of 2 within rtol 1e-4, K1's launches checked each
+    step; ms per request and per step beside the card's name and power
+    limit;
+17. print one JSON line of kernel rows (``launches``: the count over the
     paths, slices 1-3, the subpixel request, training, the command
-    line's ``analyze``, the recurrent forwards and the recurrent fits,
-    with ``launches_by_path`` beside it; K1's input-gradient rows count
-    the two training paths' input-gradient launches), the card line, and
-    the result line.
+    line's ``analyze``, the recurrent forwards and fits, and the mesh
+    paths, with ``launches_by_path`` beside it; K1's input-gradient rows
+    count the three training paths' input-gradient launches), the card
+    line, and the result line.
 
 Imports only ``hcunet_tpu_torch``, torch and numpy.
 """
@@ -1062,16 +1082,19 @@ def analyze_phase(model, dev, kernels) -> dict:
         del p1, p2
 
         # the float32 transfer, sequential, under the profiler, on the timed
-        # run's first chunk alone (numchunks=2 on it cuts none)
+        # run's first chunk alone (numchunks=2 on it cuts none), without the
+        # detector, which leaves its tail's flood nothing to do (a cut of
+        # depth for the time limit, PERF.md section 4: the timed run drives
+        # the detector and the flood)
         cfg32 = dataclasses.replace(cfg, prob_transfer_dtype="float32", numchunks=2)
         t0 = time.perf_counter()
         res32 = profile_device(
-            "analyze on one chunk (float32 transfer, overlap off)",
-            lambda: run(cfg32, "f32", vol[: chunk[0], : chunk[1]], overlap=False),
+            "analyze on one chunk (float32 transfer, overlap off, no detector)",
+            lambda: run(cfg32, "f32", vol[: chunk[0], : chunk[1]], None, overlap=False),
             {"K1": "conv3d_valid"},
         )
-        print(f"analyze on one chunk (float32 transfer, overlap off) under the profiler: "
-              f"{time.perf_counter() - t0:.3f} s; stage seconds "
+        print(f"analyze on one chunk (float32 transfer, overlap off, no detector) under the "
+              f"profiler: {time.perf_counter() - t0:.3f} s; stage seconds "
               f"{ {k: round(v, 3) for k, v in res32.stage_seconds.items()} }; stage bytes "
               f"{res32.stage_bytes}", flush=True)
         tol = cfg.prob_scale / 131070 + 1e-6
@@ -1087,10 +1110,10 @@ def analyze_phase(model, dev, kernels) -> dict:
         if n_bad > n_near or (n_near and reproducible):
             raise AssertionError("the uint16 transfer's mask differs from the float32 run's")
 
-        # "fused" == "materialized" on the first quarter of that chunk's map
+        # "fused" == "materialized" on the first eighth of the chunk's map
         # (a cut of depth for the time limit, PERF.md section 4); the two
         # floods run at once (each releases the GIL)
-        qx, qy = chunk[0] // 2, chunk[1] // 2
+        qx, qy = chunk[0] // 4, chunk[1] // 2
         prob = np.ascontiguousarray(res32.mask[:qx, :qy])
         cand = predict_cell_candidates(x[0][:qx, :qy][..., list(cfg.detection_channels)], det,
                                        device=dev)
@@ -1105,7 +1128,7 @@ def analyze_phase(model, dev, kernels) -> dict:
         with ThreadPoolExecutor(max_workers=2) as pool:
             (fused, fused_s), (mat, mat_s) = pool.map(flood, ("fused", "materialized"))
         equal = np.array_equal(fused, mat)
-        print(f"chunk_1_1's first quarter {prob.shape}, {len(cand['scores'])} candidates: "
+        print(f"chunk_1_1's first eighth {prob.shape}, {len(cand['scores'])} candidates: "
               f"fused {fused_s:.3f} s, "
               f"materialized {mat_s:.3f} s (at once), {len(np.unique(fused)) - 1} labels, "
               f"equal: {equal}", flush=True)
@@ -1831,7 +1854,7 @@ def capture_analyze(results, label):
         pipeline.analyze = inner
 
 
-def cli_phase(model, dev, kernel) -> int:
+def cli_phase(model, dev, kernel, keep=None) -> int:
     """The user entry points on the card: the command line's ``analyze``
     (float32, as it serves a checkpoint) on a ``CLI_SCENE`` pipeline scene
     against a direct ``analyze()`` on the same models, ``validate`` and
@@ -1843,7 +1866,8 @@ def cli_phase(model, dev, kernel) -> int:
     ``cli.main`` turns off), and ``analyze()``'s at those defaults, against
     the checked run.  Returns K1's launches on the command line's ``analyze``
     (the path, with the counts set to 0 just before it), all on the basic
-    path (float32)."""
+    path (float32).  ``keep`` (a dict) receives the direct ``analyze``'s
+    inputs, result, ``cells.csv`` and seconds, the mesh phase's reference."""
     from hcunet_tpu_torch import PipelineConfig, analyze, compat
     from hcunet_tpu_torch.apps.batch import run_batch
     from hcunet_tpu_torch.cli import _load_models
@@ -1888,13 +1912,20 @@ def cli_phase(model, dev, kernel) -> int:
 
         # the same through analyze() directly, on the same models
         umodel, apply, detector = _load_models(unet_path, det_path, dev)
+        t0 = time.perf_counter()
         direct = analyze(volume=vol, unet_apply=apply, detector=detector,
                          cfg=PipelineConfig(numchunks=2, unet=umodel.config),
                          work_dir=os.path.join(root, "direct"), fit_cochlea=False, device=dev)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
         with open(os.path.join(out, "cells.csv"), "rb") as f:
             cli_csv = f.read()
         with open(os.path.join(root, "direct", "cells.csv"), "rb") as f:
-            same = f.read() == cli_csv
+            direct_csv = f.read()
+        same = direct_csv == cli_csv
+        if keep is not None:
+            keep.update(vol=vol, apply=apply, detector=detector, cfg=umodel.config,
+                        result=direct, csv=direct_csv, seconds=direct_s)
         print(f"direct analyze(): {len(direct.cells)} cells, cells.csv equal to the command "
               f"line's: {same}", flush=True)
         if not same or len(direct.cells) != info["cells"]:
@@ -1939,6 +1970,11 @@ def cli_phase(model, dev, kernel) -> int:
                     dp > 1e-4 or len(result.cells) != len(direct.cells)):
                 raise AssertionError(f"F4: the command line's {label} run parts from the "
                                      f"checked run")
+            # the library turns TF32 off for its own calls (exact_float32):
+            # analyze() at torch's defaults gives the pinned map and cells
+            if label.startswith("analyze()") and (dp > 1e-5 or not same_csv):
+                raise AssertionError(f"F4: {label} parts from the pinned run: max |dp| "
+                                     f"{dp:.3e}, cells.csv byte-equal {same_csv}")
         torch.backends.cudnn.deterministic = True
         marks.append(("F4", time.perf_counter()))
 
@@ -3225,6 +3261,311 @@ def dtrain_phase(model, dev) -> None:
 
 # phases that --phases can pick, in the order they run, and the kernels
 # each launches
+# the mesh phase: the port's multi-device paths over a mesh of the card(s)
+MESH_REQUEST = (1152, 1152, 15)
+MESH_UNET_STEPS = 5
+MESH_RTRAIN_STEPS = 3
+MESH_DTRAIN_STEPS = 2
+
+
+def mesh_devices(k: int) -> list:
+    """``k`` distinct cards where the machine has them, else ``cuda:0``
+    repeated ``k`` times."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i if n >= k else 0) for i in range(k)]
+
+
+def timed(fn) -> tuple:
+    """``fn()`` and its seconds, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def share_gap(got, want) -> tuple:
+    """``max |got - want|`` over ``max |want|``, and whether the two are
+    bit-equal."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)), bool(
+        np.array_equal(got, want))
+
+
+def sharded_tile_batches(seg, spatial) -> int:
+    """Tile batches of a sharded request, summed over the shards: each slab
+    runs its own grid (whole X columns, Y and Z rounded up) in batches."""
+    bucket = seg.bucket_shape(spatial)
+    ex, ey, ez = seg.tile_cfg.eval_size
+    n = seg._n_shards
+    tiles = (bucket[0] // n // ex) * -(-bucket[1] // ey) * -(-bucket[2] // ez)
+    return n * -(-tiles // seg.tile_cfg.batch)
+
+
+def mesh_serving(model, dev, card, kernel) -> int:
+    """(a) ``Segmenter(mesh=spatial 2)`` against one device on a
+    ``MESH_REQUEST`` volume, bf16 and float32.  Returns K1's launches in
+    the mesh requests."""
+    from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, make_mesh
+
+    mesh = make_mesh({SPATIAL_AXIS: 2}, mesh_devices(2))
+    vol = np.random.default_rng(SEED).random((*MESH_REQUEST, model.config.in_channels),
+                                             dtype=np.float32)
+    launches = 0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        seg1 = Segmenter(model, dtype=dtype, device=dev)
+        segm = Segmenter(model, dtype=dtype, mesh=mesh, tile_cfg=seg1.tile_cfg)
+        seg1.predict(vol)
+        segm.predict(vol)  # warm both
+        want, s1 = timed(lambda: seg1.predict(vol))
+        reset_counts([kernel])
+        got, sm = timed(lambda: segm.predict(vol))
+        n, routes = kernel.launches, dict(kernel.route_launches)
+        batches = sharded_tile_batches(segm, vol.shape[:-1])
+        gap, equal = share_gap(got, want)
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"mesh serving {MESH_REQUEST} {dt} ({card}): spatial 2 {1e3 * sm:.1f} ms a request,"
+              f" one device {1e3 * s1:.1f} ms; bucket {segm.bucket_shape(MESH_REQUEST)}; "
+              f"|mesh - single| / scale {gap:.3e} (gate {tol:g}), bit-equal {equal}; K1 {n} "
+              f"launches {routes} = 15 x {batches} tile batches over the shards", flush=True)
+        if n != 15 * batches:
+            raise AssertionError(f"mesh serving launched K1 {n} times, expected {15 * batches}")
+        check_k1_routes(routes, batches, dtype)
+        if not gap <= tol:
+            raise AssertionError(f"mesh serving {dt} parts from one device by {gap:.3e}")
+        launches += n
+        del seg1, segm
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_analyze(model, dev, card, kernel, ref=None) -> int:
+    """(b) ``analyze(mesh=spatial 2)`` on the ``cli`` phase's scene with
+    the U-Net served in float32 and the ResNet50-FPN detector, against one
+    device: the ``cli`` phase's direct ``analyze`` (``ref``, its inputs
+    and result) where that phase ran, else a run here on the same scene
+    and models.  Returns K1's launches in the mesh run."""
+    from hcunet_tpu_torch import PipelineConfig, analyze
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, make_mesh
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        if not ref:
+            ref = {"vol": write_stack_sample(root, "m0", SEED), "detector": build_detector(dev),
+                   "apply": compile_serving_apply(model, dtype=torch.float32, device=dev),
+                   "cfg": model.config}
+        cfg = PipelineConfig(numchunks=2, unet=ref["cfg"])
+        common = dict(volume=ref["vol"], unet_apply=ref["apply"], detector=ref["detector"],
+                      cfg=cfg, fit_cochlea=False)
+        if "result" not in ref:
+            ref["result"], ref["seconds"] = timed(lambda: analyze(
+                work_dir=os.path.join(root, "single"), device=dev, **common))
+            with open(os.path.join(root, "single", "cells.csv"), "rb") as f:
+                ref["csv"] = f.read()
+        single, s1 = ref["result"], ref["seconds"]
+        mesh = make_mesh({SPATIAL_AXIS: 2}, mesh_devices(2))
+        reset_counts([kernel])
+        res, sm = timed(lambda: analyze(work_dir=os.path.join(root, "mesh"), mesh=mesh,
+                                        **common))
+        n = kernel.launches
+        with open(os.path.join(root, "mesh", "cells.csv"), "rb") as f:
+            csv = [ref["csv"], f.read()]
+        dp = float(np.abs(res.mask.astype(np.float64) - single.mask).max())
+        chunks = (cfg.numchunks - 1) ** 2
+        print(f"mesh analyze {CLI_SCENE} float32 ({card}): spatial 2 {sm:.3f} s, one device "
+              f"{s1:.3f} s; max |dp| {dp:.3e} (gate 1e-5); cells {len(res.cells)} / "
+              f"{len(single.cells)}, cells.csv byte-equal {csv[0] == csv[1]}; mesh_chunks "
+              f"{res.mesh_chunks}; K1 {n} launches", flush=True)
+        if res.mesh_chunks != {"sharded": chunks, "fallback": 0}:
+            raise AssertionError(f"mesh analyze chunks {res.mesh_chunks}")
+        if not dp <= 1e-5 or csv[0] != csv[1] or n == 0:
+            raise AssertionError("mesh analyze parts from one device")
+        return n
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_recurrent(dev, card, kernel) -> int:
+    """(c) ``compile_recurrent_apply(mesh=spatial 2, split_x=2)`` for both
+    families at full width against ``split_x=2`` without a mesh, bf16 and
+    float32.  Returns K1's launches in the mesh forwards."""
+    from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig
+    from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+    from hcunet_tpu_torch.models.runet import RecursiveUNet
+    from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, make_mesh
+
+    mesh = make_mesh({SPATIAL_AXIS: 2}, mesh_devices(2))
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, *RECURRENT_SCENE, 4)).astype(np.float32)).to(dev)
+    launches = 0
+    torch.backends.cudnn.deterministic = True  # RDCNet's conv_transpose3d, run to run
+    try:
+        for family, model in (("RecursiveUNet", RecursiveUNet(RUNetConfig())),
+                              ("RDCNet", RDCNet(RDCNetConfig()))):
+            model = build_recurrent(model, gen)
+            for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+                split = compile_recurrent_apply(model, dtype=dtype, device=dev, split_x=2)
+                sharded = compile_recurrent_apply(model, dtype=dtype, split_x=2, mesh=mesh)
+                split(x)
+                sharded(x)  # warm both
+                reset_counts([kernel])
+                want, s1 = timed(lambda: split(x))
+                n1 = kernel.launches
+                reset_counts([kernel])
+                got, sm = timed(lambda: sharded(x))
+                n = kernel.launches
+                gap, equal = share_gap(got.cpu(), want.cpu())
+                # each device runs its tile alone: twice the batched split's
+                # launches, but RDCNet's output conv runs once on the whole
+                expect = 2 * n1 if family == "RecursiveUNet" else 2 * (n1 - 1) + 1
+                dt = "bf16" if dtype == torch.bfloat16 else "f32"
+                print(f"mesh {family} {RECURRENT_SCENE} {dt} ({card}): spatial 2 "
+                      f"{1e3 * sm:.1f} ms a forward, split_x=2 on one device {1e3 * s1:.1f} ms; "
+                      f"|mesh - split| / scale {gap:.3e} (gate {tol:g}), bit-equal {equal}; "
+                      f"K1 {n} launches (split {n1})", flush=True)
+                if n != expect or not gap <= tol:
+                    raise AssertionError(f"mesh {family} {dt}: {n} launches (expected {expect}),"
+                                         f" gap {gap:.3e}")
+                launches += n
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return launches
+
+
+def mesh_train_runs(label, card, make, step, steps, kernels, per_step):
+    """``steps`` steps of a mesh trainer and of a one-device one from the
+    same start on the same global batches, the losses held to rtol 1e-4;
+    ``per_step`` (K1's forward and input-gradient launches a mesh step, or
+    None) is checked each step.  Returns the mesh steps' launches."""
+    fwd_k, grad_k = kernels
+    runs, launches = {}, {"forward": 0, "input_grad": 0}
+    for name in ("mesh", "single"):
+        trainer = make(name == "mesh")
+        losses, secs = [], []
+        for _ in range(steps):
+            reset_counts([fwd_k, grad_k])
+            loss, sec = timed(lambda: step(trainer))
+            losses.append(loss)
+            secs.append(sec)
+            if name == "mesh":
+                got = (fwd_k.launches, grad_k.launches)
+                launches["forward"] += got[0]
+                launches["input_grad"] += got[1]
+                if per_step is not None and got != per_step:
+                    raise AssertionError(f"{label}: K1 {got} a mesh step, expected {per_step}")
+        runs[name] = (losses, secs)
+        del trainer
+        torch.cuda.empty_cache()
+    (lm, sm), (ls, ss) = runs["mesh"], runs["single"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lm, ls))
+    print(f"mesh training {label} ({card}): losses {lm} against one device {ls}, largest "
+          f"relative gap {rel:.3e} (gate 1e-4); {1e3 * min(sm):.1f} ms a mesh step, "
+          f"{1e3 * min(ss):.1f} ms on one device", flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError(f"{label}: mesh training parts from one device by {rel:.3e}")
+    return launches
+
+
+def mesh_training(dev, card, kernels) -> dict:
+    """(d) ``UNetTrainer`` on the 2 x 2 x 2 mesh (production width, float32,
+    ``FIT_CROP``), ``RecurrentTrainer`` (RDCNet) and ``DetectionTrainer``
+    (ResNet50-FPN, 512^2) on data 2, each against one device on the global
+    batch of 2.  Returns K1's launches in the mesh steps."""
+    import copy
+
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    from hcunet_tpu_torch.train.detection_trainer import DetectionTrainConfig, DetectionTrainer
+    from hcunet_tpu_torch.train.trainer import RecurrentTrainer, TrainConfig, UNetTrainer
+
+    launches = {"forward": 0, "input_grad": 0}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # U-Net: data 2 x model 2 x spatial 2, the kernels of 32+ channels sliced
+    x, y = fit_batch()
+    xb = torch.from_numpy(np.concatenate([x, x[:, ::-1]])).to(dev)
+    yb = torch.from_numpy(np.concatenate([y, y[:, ::-1]])).to(dev)
+    start = build_model(UNetConfig.production_3d(), torch.Generator().manual_seed(SEED))
+    grid = make_mesh({DATA_AXIS: 2, "model": 2, "spatial": 2}, mesh_devices(8))
+
+    def unet_trainer(on_mesh):
+        return UNetTrainer(copy.deepcopy(start), cfg=TrainConfig(log_every=0),
+                           mesh=grid if on_mesh else None, device=None if on_mesh else dev)
+
+    add(mesh_train_runs("UNet production_3d 2x2x2", card, unet_trainer,
+                        lambda tr: tr.train_step(xb, yb, None), MESH_UNET_STEPS, kernels,
+                        (30, 28)))
+
+    # RDCNet: data 2
+    pair = [recurrent_scene(RTRAIN_CROP, SEED + i)["batch"] for i in range(2)]
+    rb = [torch.from_numpy(np.concatenate([a, b])).to(dev) for a, b in zip(*pair)]
+    rstart = recurrent_model("rdcnet")
+    data2 = make_mesh({DATA_AXIS: 2}, mesh_devices(2))
+
+    def rdc_trainer(on_mesh):
+        return RecurrentTrainer(copy.deepcopy(rstart), cfg=TrainConfig(log_every=0),
+                                mesh=data2 if on_mesh else None, device=None if on_mesh else dev)
+
+    n = 7 * rstart.config.timesteps + 1
+    add(mesh_train_runs("RDCNet data 2", card, rdc_trainer,
+                        lambda tr: tr.train_step(rb[0], rb[1], rb[2], rb[4]), MESH_RTRAIN_STEPS,
+                        kernels, (2 * n, 2 * n)))
+
+    # the detector: data 2, one image a replica
+    samples = [section_sample(SEED + i) for i in range(2)]
+    images = np.concatenate([s[0] for s in samples])
+    targets = [{"boxes": s[1], "labels": s[2]} for s in samples]
+    dstart = train_detector()
+
+    def det_trainer(on_mesh):
+        cfg = DetectionTrainConfig(learning_rate=DTRAIN_LR, max_gt=DTRAIN_MAX_GT)
+        return DetectionTrainer(copy.deepcopy(dstart), cfg=cfg, batch_size=2,
+                                mesh=data2 if on_mesh else None, device=None if on_mesh else dev)
+
+    mesh_train_runs("ResNet50-FPN detector data 2", card, det_trainer,
+                    lambda tr: tr.train_step_batch(images, targets), MESH_DTRAIN_STEPS,
+                    kernels, (0, 0))
+    return launches
+
+
+def mesh_phase(model, dev, kernels, ref=None) -> dict:
+    """The port's multi-device paths on the card: serving, ``analyze``,
+    recurrent serving and the three trainers over a mesh (``mesh_devices``:
+    distinct cards where there are enough, else the card repeated), each
+    against one device; every mesh run's K1 launches counted, each run
+    with the counts set to 0 just before it.  ``ref``: the ``cli`` phase's
+    direct ``analyze`` (:func:`mesh_analyze`).  Returns the path's K1
+    launches ``{"forward", "input_grad"}``."""
+    fwd_k, _grad_k = kernels
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"mesh devices: {[str(d) for d in mesh_devices(8)]} (cards present: "
+          f"{torch.cuda.device_count()}; a single card is repeated: these times are no "
+          f"scaling figure)", flush=True)
+    marks = []
+    fwd = mesh_serving(model, dev, card, fwd_k)
+    marks.append(("serving", time.perf_counter()))
+    fwd += mesh_analyze(model, dev, card, fwd_k, ref)
+    marks.append(("analyze", time.perf_counter()))
+    fwd += mesh_recurrent(dev, card, fwd_k)
+    marks.append(("recurrent", time.perf_counter()))
+    train = mesh_training(dev, card, kernels)
+    marks.append(("training", time.perf_counter()))
+    split = ", ".join(f"{name} {t - t0:.1f}" for (name, t), (_n, t0) in
+                      zip(marks, [("start", t_phase)] + marks[:-1]))
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s ({split}; {card})", flush=True)
+    return {"forward": fwd + train["forward"], "input_grad": train["input_grad"]}
+
+
 PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
@@ -3239,6 +3580,7 @@ PHASES = {
     "recurrent": ("K1",),
     "rtrain": ("K1",),
     "dtrain": (),
+    "mesh": ("K1",),
 }
 
 
@@ -3371,8 +3713,9 @@ def main(argv=None) -> int:
         marks.append(("slice 3", time.perf_counter()))
     # phase 12: the user entry points (command line, batch, facade)
     cli_launches = 0
+    cli_analyze = {}
     if "cli" in phases:
-        cli_launches = cli_phase(model, dev, CONV3D_VALID)
+        cli_launches = cli_phase(model, dev, CONV3D_VALID, keep=cli_analyze)
         marks.append(("cli", time.perf_counter()))
     # phase 13: the recurrent family's serving
     rec_launches = 0
@@ -3394,10 +3737,17 @@ def main(argv=None) -> int:
         dtrain_phase(model, dev)
         torch.cuda.empty_cache()
         marks.append(("dtrain", time.perf_counter()))
+    # phase 16: the multi-device paths over a mesh of the card(s)
+    mesh_counts = {"forward": 0, "input_grad": 0}
+    if "mesh" in phases:
+        mesh_counts = mesh_phase(model, dev, (CONV3D_VALID, CONV3D_VALID_INPUT_GRAD),
+                                 cli_analyze)
+        torch.cuda.empty_cache()
+        marks.append(("mesh", time.perf_counter()))
 
-    # phase 16: results.  A kernel's launches are those of the whole main
-    # path (slices 1-3, the subpixel route, training, the command line and
-    # the recurrent family's serving and training):
+    # phase 17: results.  A kernel's launches are those of the whole main
+    # path (slices 1-3, the subpixel route, training, the command line, the
+    # recurrent family's serving and training, and the mesh paths):
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
@@ -3408,11 +3758,13 @@ def main(argv=None) -> int:
                    "train": train_counts["forward"] if k1 else 0,
                    "cli": cli_launches if k1 else 0,
                    "recurrent": rec_launches if k1 else 0,
-                   "rtrain": rtrain_counts["forward"] if k1 else 0}
+                   "rtrain": rtrain_counts["forward"] if k1 else 0,
+                   "mesh": mesh_counts["forward"] if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
-    grad_by_path = {"train": train_counts["input_grad"], "rtrain": rtrain_counts["input_grad"]}
+    grad_by_path = {"train": train_counts["input_grad"], "rtrain": rtrain_counts["input_grad"],
+                    "mesh": mesh_counts["input_grad"]}
     for row in grad_rows + rtrain_rows:
         row["launches"] = sum(grad_by_path.values()) if full else None
         row["launches_by_path"] = grad_by_path if full else None
@@ -3426,7 +3778,9 @@ def main(argv=None) -> int:
              "recurrent": f"the recurrent forwards and predict-recurrent {rec_launches} K1",
              "rtrain": f"recurrent training {rtrain_counts['forward']} K1 forward and "
                        f"{rtrain_counts['input_grad']} K1 input-gradient",
-             "dtrain": "detection training no kernel"}
+             "dtrain": "detection training no kernel",
+             "mesh": f"the mesh paths {mesh_counts['forward']} K1 forward and "
+                     f"{mesh_counts['input_grad']} K1 input-gradient"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "

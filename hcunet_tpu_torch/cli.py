@@ -26,8 +26,11 @@ TF32 off for the process (:func:`pin_float32`).  Checkpoints are the JAX package
 format, so a checkpoint written by either command line loads in the other.
 The U-Net serves in its checkpoint's dtype, float32, and
 ``predict-recurrent`` in bfloat16 through ``compile_recurrent_apply``, as
-the JAX commands do.  Multi-device runs (``--spatial-shards``, ``--data-parallel`` above
-1) are not ported yet and exit with a message.
+the JAX commands do.  ``--spatial-shards N`` (``analyze``, ``batch``) and
+``--data-parallel N`` (``train-unet``, ``train-recurrent``, ``train-rcnn``)
+run over a mesh of N devices (:mod:`hcunet_tpu_torch.parallel`): with
+``--device cuda`` N distinct cards, and the command exits when fewer are
+present; with ``--device cpu`` N CPU entries.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def _add_analyze(sub):
                    help="capture a torch.profiler trace into this directory")
     p.add_argument("--spatial-shards", type=int, default=1,
                    help="shard each chunk's X axis over this many devices "
-                        "(not ported yet: values above 1 exit)")
+                        "(distinct cards with --device cuda)")
     _add_transfer_flags(p)
     _add_device(p)
 
@@ -83,7 +86,7 @@ def _add_batch(sub):
     p.add_argument("--retry-errors", action="store_true")
     p.add_argument("--spatial-shards", type=int, default=1,
                    help="shard each chunk's X axis over this many devices "
-                        "(not ported yet: values above 1 exit)")
+                        "(distinct cards with --device cuda)")
     _add_transfer_flags(p)
     _add_device(p)
 
@@ -100,7 +103,7 @@ def _add_train_unet(sub):
                    choices=["pixel", "worst_z", "sigmoid"])
     p.add_argument("--data-parallel", type=int, default=1,
                    help="shard each train batch over this many devices "
-                        "(not ported yet: values above 1 exit)")
+                        "(distinct cards with --device cuda)")
     _add_device(p)
 
 
@@ -122,7 +125,7 @@ def _add_train_recurrent(sub):
                    help="override the recurrence depth")
     p.add_argument("--data-parallel", type=int, default=1,
                    help="shard each train batch over this many devices "
-                        "(not ported yet: values above 1 exit)")
+                        "(distinct cards with --device cuda)")
     _add_device(p)
 
 
@@ -140,7 +143,7 @@ def _add_train_rcnn(sub):
                         "averaged; the reference is strictly batch=1)")
     p.add_argument("--data-parallel", type=int, default=0,
                    help="shard each global batch over N devices "
-                        "(not ported yet: values above 1 exit)")
+                        "(distinct cards with --device cuda)")
     p.add_argument("--backbone", choices=("resnet50", "small"),
                    default="resnet50",
                    help="resnet50 = the reference's production architecture "
@@ -246,16 +249,46 @@ def pin_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _mesh_devices(n: int, device: str, flag: str) -> list:
+    """The ``n`` devices of a command's mesh: ``n`` distinct cards for a
+    CUDA ``device`` (the command exits with the JAX command line's message
+    when fewer are present: a card is never repeated), else ``n`` entries
+    of ``device``."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        if flag == "spatial-shards":
+            raise SystemExit(f"--spatial-shards {n} needs {n} devices, have {have}")
+        raise SystemExit(f"--{flag} {n} needs that many devices, have {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _make_spatial_mesh(n_shards: int, device: str):
+    """``--spatial-shards``'s mesh, or None for one device."""
+    if n_shards <= 1:
+        return None
+    from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, make_mesh
+
+    return make_mesh({SPATIAL_AXIS: n_shards},
+                     _mesh_devices(n_shards, device, "spatial-shards"))
+
+
+def _make_data_mesh(n: int, device: str):
+    """``--data-parallel``'s mesh, or None for one device."""
+    if not n or n <= 1:
+        return None
+    from hcunet_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    return make_mesh({DATA_AXIS: n}, _mesh_devices(n, device, "data-parallel"))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     pin_float32()
-    for flag in ("spatial_shards", "data_parallel"):
-        n = getattr(args, flag, 1)
-        if n and n > 1:
-            raise SystemExit(
-                f"--{flag.replace('_', '-')} {n}: multi-device runs are not ported "
-                f"to hcunet_tpu_torch yet; run on one device"
-            )
     commands = {
         "analyze": _cmd_analyze_like,
         "batch": _cmd_analyze_like,
@@ -291,7 +324,9 @@ def _cmd_analyze_like(args):
     from hcunet_tpu_torch.config import PipelineConfig
     from hcunet_tpu_torch.infer.pipeline import analyze
 
-    model, unet_apply, detector = _load_models(args.unet, args.detector, args.device)
+    mesh = _make_spatial_mesh(args.spatial_shards, args.device)
+    device = args.device if mesh is None else mesh.devices.flat[0]
+    model, unet_apply, detector = _load_models(args.unet, args.detector, device)
     cfg = PipelineConfig(
         numchunks=args.numchunks, unet=model.config,
         prob_transfer_dtype=args.prob_dtype,
@@ -309,7 +344,7 @@ def _cmd_analyze_like(args):
             result = analyze(
                 args.image, unet_apply=unet_apply, detector=detector, cfg=cfg,
                 work_dir=out, fit_cochlea=not args.no_cochlea,
-                overlap=tail_workers, device=args.device,
+                overlap=tail_workers, mesh=mesh, device=device,
             )
         print(json.dumps({"cells": len(result.cells), "out": out}))
         return 0
@@ -319,7 +354,7 @@ def _cmd_analyze_like(args):
     def one(img, out_dir):
         analyze(
             img, unet_apply=unet_apply, detector=detector, cfg=cfg,
-            work_dir=out_dir, overlap=tail_workers, device=args.device,
+            work_dir=out_dir, overlap=tail_workers, mesh=mesh, device=device,
         )
 
     results = run_batch(args.data_root, one, retry_errors=args.retry_errors)
@@ -336,6 +371,7 @@ def _cmd_train_unet(args):
     from hcunet_tpu_torch.models.unet import init_unet
     from hcunet_tpu_torch.train.trainer import TrainConfig, UNetTrainer
 
+    mesh = _make_data_mesh(args.data_parallel, args.device)
     # the canonical augment recipe (reference tests/transforms_test.py:22-39)
     ds = Stack(
         args.data,
@@ -359,7 +395,7 @@ def _cmd_train_unet(args):
         model, None,
         TrainConfig(learning_rate=args.lr, epochs=args.epochs,
                     loss_method=args.loss_method, checkpoint_path=args.out),
-        device=args.device,
+        mesh=mesh, device=None if mesh else args.device,
     )
     trainer.fit(ds)
     trainer.save(args.out)
@@ -378,6 +414,7 @@ def _cmd_train_recurrent(args):
     from hcunet_tpu_torch.models.unet import init_like_flax
     from hcunet_tpu_torch.train.trainer import RecurrentTrainer, TrainConfig
 
+    mesh = _make_data_mesh(args.data_parallel, args.device)
     # recurrent recipe (reference tests/r_unet_test.py:20-44): joint crops
     # only; the vector field is geometry-coupled, so photometric augments
     # stay on the image
@@ -413,7 +450,7 @@ def _cmd_train_recurrent(args):
         model, None,
         TrainConfig(learning_rate=args.lr, epochs=args.epochs,
                     checkpoint_path=args.out),
-        device=args.device,
+        mesh=mesh, device=None if mesh else args.device,
     )
     trainer.fit(ds)
     trainer.save(args.out)
@@ -435,6 +472,16 @@ def _cmd_train_rcnn(args):
     )
     from hcunet_tpu_torch.utils.checkpoint import save_checkpoint
 
+    mesh = _make_data_mesh(args.data_parallel, args.device)
+    batch = args.batch_size if args.batch_size > 1 else (
+        args.data_parallel if mesh is not None else 1
+    )
+    if mesh is not None and batch % args.data_parallel:
+        raise SystemExit(
+            f"--batch-size {batch} must be a multiple of --data-parallel "
+            f"{args.data_parallel}: each device takes batch/N samples of "
+            f"the sharded global batch"
+        )
     ds = Section(
         args.data,
         image_transforms=[t.to_float(), t.remove_channel()],
@@ -446,7 +493,6 @@ def _cmd_train_rcnn(args):
     # the JAX Detector.init's LeCun-normal kernels (flax's default), zero
     # biases, identity batch norms but each bottleneck's zero last scale
     init_like_flax(det, torch.Generator().manual_seed(0), scale=1.0)
-    batch = max(args.batch_size, 1)
     trainer = DetectionTrainer(
         det, None,
         DetectionTrainConfig(
@@ -455,7 +501,7 @@ def _cmd_train_rcnn(args):
         ),
         steps_per_epoch=max(1, -(-len(ds) // batch)),
         batch_size=batch,
-        device=args.device,
+        mesh=mesh, device=None if mesh else args.device,
     )
     trainer.fit(ds)
     save_checkpoint(args.out, trainer.variables, cfg)

@@ -38,6 +38,7 @@ from hcunet_tpu_torch.config import (
     WatershedConfig,
     resolve_device,
 )
+from hcunet_tpu_torch.core.precision import exact_float32
 
 _WS = WatershedConfig()
 
@@ -185,6 +186,7 @@ class unet:
 
     # -- torch-Module surface ------------------------------------------------
 
+    @exact_float32()
     def forward(self, x) -> np.ndarray:
         """``x``: [B, C, X, Y(, Z)] (numpy or tensor) → numpy of the
         valid-conv output, same layout, computed on the model's device.  In
@@ -273,6 +275,7 @@ class _CompatRCNN:
     def __init__(self, detector):
         self.detector = detector
 
+    @exact_float32()
     def __call__(self, images) -> List[Dict[str, np.ndarray]]:
         if isinstance(images, (list, tuple)):
             arr = np.stack([np.asarray(torch.as_tensor(im).cpu(), np.float32) for im in images])
@@ -358,6 +361,7 @@ def rcnn(path: Optional[str] = None, *, config: Optional[DetectorConfig] = None,
     return _CompatRCNN(det)
 
 
+@exact_float32()
 def predict_segmentation_mask(unet_model, image, device=None,
                               use_probability_map: bool = False,
                               mask_cell_prob_threshold: float = 0.5,
@@ -386,6 +390,7 @@ def predict_segmentation_mask(unet_model, image, device=None,
     return _to_channels_first(out)
 
 
+@exact_float32()
 def predict_cell_candidates(image, model, candidate_list=None,
                             initial_coords=(0, 0)) -> Dict[str, np.ndarray]:
     """``hcat.predict_cell_candidates`` (``hcat/segment.py:139-218``):
@@ -447,6 +452,7 @@ def generate_cell_objects(image, unique_mask, cell_candidates=None,
                 x_ind_chunk=x_ind_chunk, y_ind_chunk=y_ind_chunk)
 
 
+@exact_float32()
 def analyze(path=None, numchunks: int = 3, save_plots: bool = False,
             show_plots: bool = False, path_chunk_storage: Optional[str] = None,
             *, unet_model: Optional[unet] = None, faster_rcnn=None,

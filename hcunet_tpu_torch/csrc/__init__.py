@@ -148,11 +148,14 @@ class LaunchCount:
     def __init__(self, routes: tuple = ()):
         self.launches = 0
         self.route_launches = dict.fromkeys(routes, 0)
+        # data replicas launch from threads of their own
+        self._lock = threading.Lock()
 
     def add(self, route: str) -> None:
         """One launch, on the path ``route``."""
-        self.launches += 1
-        self.route_launches[route] += 1
+        with self._lock:
+            self.launches += 1
+            self.route_launches[route] += 1
 
 
 class CudaKernel(LaunchCount):

@@ -144,8 +144,10 @@ def compile_serving_apply(
     """Build the BN-folded inference forward for a 3D valid-conv UNet.
 
     Returns ``apply(tiles[B, tx, ty, tz, C]) -> logits`` (float32) on
-    ``device`` (CUDA unless given).  ``conv`` runs the valid convs with the
-    signature of :func:`conv3d_valid`; K1 by default.  Falls back to the
+    ``device`` (CUDA unless given); ``apply.device`` names that device and
+    ``apply.on_device(d)`` builds the same forward on device ``d``.
+    ``conv`` runs the valid convs with the signature of
+    :func:`conv3d_valid`; K1 by default.  Falls back to the
     model's plain forward where the JAX function does: 2D configs,
     dilation > 1, a z upsample stride other than 1 or a pool other than
     (2, 2, 1).
@@ -158,6 +160,12 @@ def compile_serving_apply(
     """
     dev = resolve_device(device)
     cfg: UNetConfig = model.config
+
+    def rebuild(d):
+        return compile_serving_apply(
+            model, dtype=dtype, device=d, conv=conv, subpixel_tconv=subpixel_tconv
+        )
+
     if (
         cfg.image_dimensions != 3
         or cfg.dilation != 1
@@ -172,7 +180,7 @@ def compile_serving_apply(
         def plain_apply(tiles: torch.Tensor) -> torch.Tensor:
             return plain(tiles.to(dev))
 
-        return plain_apply
+        return _bound(plain_apply, dev, rebuild)
 
     def block(step) -> List[_Folded]:
         return [
@@ -228,4 +236,13 @@ def compile_serving_apply(
                 x = conv(x, w, b, True)
         return conv(x, w_out, b_out, False).float()
 
+    return _bound(apply_fn, dev, rebuild)
+
+
+def _bound(apply_fn, device, rebuild):
+    """``apply_fn`` with the device it runs on and ``on_device(d)``, the
+    same forward built on device ``d``: a mesh gives each of its devices a
+    copy (:func:`hcunet_tpu_torch.parallel.mesh.replicate`)."""
+    apply_fn.device = device
+    apply_fn.on_device = rebuild
     return apply_fn

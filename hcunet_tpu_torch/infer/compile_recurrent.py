@@ -28,8 +28,11 @@ BN-folding rounding:
 
 The JAX function's z-block lane packing (``zb_for``, ``zb_plan``,
 ``zb_cap``) was sized for the TPU's 128-lane matrix unit and is not carried
-over, nor are its arguments; ``mesh=`` (one x-tile per device) is not
-ported yet.
+over, nor are its arguments.  With ``mesh=`` the ``split_x`` tiles are
+spread over the mesh's devices, each timestep's seam refresh copying the
+columns each tile needs from its neighbours' devices.  The returned
+forwards run float32 with TF32 off
+(:func:`~hcunet_tpu_torch.core.precision.exact_float32`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig, resolve_device
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.infer.compile import (
     _folded_conv_params,
     subpixel_pads,
@@ -49,6 +53,7 @@ from hcunet_tpu_torch.infer.compile import (
 from hcunet_tpu_torch.models.rdcnet import DILATIONS
 from hcunet_tpu_torch.models.runet import UP_PADDING
 from hcunet_tpu_torch.models.unet import conv_weight_channels_last, tconv_weight_channels_last
+from hcunet_tpu_torch.parallel.mesh import canonical_device
 from hcunet_tpu_torch.ops.conv import conv3d_valid, conv_same, conv_transpose_torch, max_pool
 from hcunet_tpu_torch.utils.logging import get_logger
 
@@ -79,34 +84,67 @@ def _tile_core(n: int, tile: int, halo: int) -> int:
 
 
 def _halo_refresh(arr: torch.Tensor, halo: int) -> torch.Tensor:
-    """Refresh the seam halos of a volume split into ``n`` x-tiles.
+    """Refresh the seam halos of a volume split into ``n`` x-tiles
+    ``arr[j]`` (:func:`_refresh_tiles` on one device)."""
+    return torch.stack(_refresh_tiles(list(arr.unbind(0)), halo), dim=0)
 
-    ``arr[j]`` holds global columns ``[offs[j], offs[j] + tile)`` where tile
-    ``j`` owns ``[j * core, (j + 1) * core)``; ``tile = core + halo`` at
-    n = 2 and ``core + 2 halo`` at n >= 3.  Every column a tile holds but
+
+def _refresh_tiles(tiles: List[torch.Tensor], halo: int) -> List[torch.Tensor]:
+    """Refresh the seam halos of ``n`` x-tiles, each on its own device.
+
+    ``tiles[j]`` holds global columns ``[offs[j], offs[j] + tile)`` where
+    tile ``j`` owns ``[j * core, (j + 1) * core)``; ``tile = core + halo``
+    at n = 2 and ``core + 2 halo`` at n >= 3.  Every column a tile holds but
     does not own is overwritten with its owner's value at the same global
-    position.  Owned columns sit >= ``halo`` from every cut edge, so they
-    stay exact as long as ``halo`` covers one step's receptive radius."""
-    n, tile = int(arr.shape[0]), int(arr.shape[1])
+    position, copied from the owner's device.  Owned columns sit >=
+    ``halo`` from every cut edge, so they stay exact as long as ``halo``
+    covers one step's receptive radius."""
+    n, tile = len(tiles), int(tiles[0].shape[0])
     core = _tile_core(n, tile, halo)
     offs = _split_offsets(n, core, tile)
 
-    def owned(g0: int, g1: int) -> List[torch.Tensor]:
+    def owned(g0: int, g1: int, dev) -> List[torch.Tensor]:
         segs, g = [], g0
         while g < g1:
             j = min(g // core, n - 1)
             g2 = min(g1, (j + 1) * core) if j < n - 1 else g1
-            segs.append(arr[j, g - offs[j]: g2 - offs[j]])
+            segs.append(tiles[j][g - offs[j]: g2 - offs[j]].to(dev, non_blocking=True))
             g = g2
         return segs
 
-    tiles = []
+    out = []
     for j in range(n):
         o0, o1 = j * core, (j + 1) * core
-        segs = owned(offs[j], o0) + [arr[j, o0 - offs[j]: o1 - offs[j]]]
-        segs += owned(o1, offs[j] + tile)
-        tiles.append(torch.cat(segs, dim=0) if len(segs) > 1 else segs[0])
-    return torch.stack(tiles, dim=0)
+        dev = tiles[j].device
+        segs = owned(offs[j], o0, dev) + [tiles[j][o0 - offs[j]: o1 - offs[j]]]
+        segs += owned(o1, offs[j] + tile, dev)
+        out.append(torch.cat(segs, dim=0) if len(segs) > 1 else segs[0])
+    return out
+
+
+class _MeshTiles:
+    """The ``n`` x-tiles of a split volume grouped by device: tiles ``k *
+    n/size .. (k+1) * n/size - 1`` batched on device ``k`` of the mesh
+    (:func:`~hcunet_tpu_torch.parallel.mesh.tiles_sharding`)."""
+
+    def __init__(self, mesh, n: int):
+        from hcunet_tpu_torch.parallel.mesh import tiles_sharding
+
+        self.devices = tiles_sharding(mesh, n).devices
+        self.per = n // len(self.devices)
+
+    def place(self, stacked: torch.Tensor) -> List[torch.Tensor]:
+        """``[n, tile, ...]`` -> one ``[n/size, tile, ...]`` group per device."""
+        return [g.to(d, non_blocking=True)
+                for g, d in zip(stacked.split(self.per), self.devices)]
+
+    def refresh(self, groups: List[torch.Tensor], halo: int) -> List[torch.Tensor]:
+        tiles = _refresh_tiles([t for g in groups for t in g.unbind(0)], halo)
+        return [torch.stack(tiles[k * self.per: (k + 1) * self.per])
+                for k in range(len(groups))]
+
+    def gather(self, groups: List[torch.Tensor], device) -> torch.Tensor:
+        return torch.cat([g.to(device, non_blocking=True) for g in groups], dim=0)
 
 
 def _split_stack(vol: torch.Tensor, n: int, tile: int, core: int) -> torch.Tensor:
@@ -151,6 +189,7 @@ def _plain_apply(model, device) -> Callable[[torch.Tensor], torch.Tensor]:
     does not apply."""
     plain = []
 
+    @exact_float32()
     @torch.no_grad()
     def apply_fn(image: torch.Tensor) -> torch.Tensor:
         if not plain:
@@ -169,12 +208,14 @@ def compile_recurrent_apply(
     subpixel_tconv: bool = True,
     split_x: int = 1,
     halo_x: Optional[int] = None,
+    mesh=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the BN-folded inference forward of a ``RecursiveUNet``.
 
     Returns ``apply(image[B, X, Y, Z, C]) -> s_T`` (float32) on ``device``
-    (CUDA unless given).  ``conv`` runs the valid convs with the signature
-    of :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`; K1 by default.  An
+    (CUDA unless given; with a ``mesh``, its first device).  ``conv`` runs
+    the valid convs with the signature of
+    :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`; K1 by default.  An
     ``RDCNet`` goes to :func:`compile_rdcnet_apply` (``halo_x`` in its
     half-resolution columns, default 12).  Falls back to the model's plain
     forward where the JAX function does: a pool or upsample stride other
@@ -189,13 +230,20 @@ def compile_recurrent_apply(
     n == 0``, core and halo multiples of 4, and a core at least the tile's
     halos; otherwise the volume runs unsplit.  The output equals the
     unsplit forward's where the conv computes each output voxel the same
-    way at any batch index and position."""
-    dev = resolve_device(device)
+    way at any batch index and position.
+
+    ``mesh`` (with ``split_x`` a multiple of ``mesh.size``): the tiles
+    spread over the mesh's devices, ``n / size`` batched on each, with the
+    folded weights placed on every device; each timestep's refresh of both
+    carries copies the seam columns between neighbouring devices.  The
+    output equals the ``split_x=n`` forward without a mesh where the conv
+    computes each voxel the same way at any batch size."""
+    dev = _first_device(device, mesh)
     cfg = model.config
     if isinstance(cfg, RDCNetConfig):
         return compile_rdcnet_apply(
             model, dtype=dtype, device=dev, conv=conv, split_x=split_x,
-            halo_x=RDCNET_HALO if halo_x is None else int(halo_x),
+            halo_x=RDCNET_HALO if halo_x is None else int(halo_x), mesh=mesh,
         )
     plain = _plain_apply(model, dev)
     if (
@@ -214,34 +262,39 @@ def compile_recurrent_apply(
     c1 = cfg.channels[1]
     skip_bug = bool(model.reference_skip_bug)
     pads = tuple((k - 1) // 2 for k in cfg.kernel)
-    folded: Dict[str, List[_Conv]] = {
-        name: [
-            _folded_conv_params(block.conv1, block.batch1, 1, dtype, dev),
-            _folded_conv_params(block.conv2, block.batch2, 1, dtype, dev),
-        ]
-        for name, block in model.named_children()
-        if name.startswith(("down", "up"))
-    }
     use_subpixel = subpixel_tconv and subpixel_pads(cfg.upsample_kernel, UP_PADDING) is not None
-    tconvs: Dict[str, _Conv] = {}
-    for name in ("up1_fh", "up1_fz", "up2"):
-        w_up, b_up = _conv_params(getattr(model, name).up_conv, torch.float32, "cpu", True)
-        if use_subpixel:
-            w_up, b_up = subpixel_tconv_weights(w_up), b_up.repeat(4)
-        tconvs[name] = (w_up.to(device=dev, dtype=dtype).contiguous(), b_up.to(dev))
-    w_out, b_out = _conv_params(model.out_conv, dtype, dev)
     pool = tuple(cfg.max_pool_kernel)
+
+    def params_on(d) -> dict:
+        """The folded weights on device ``d``."""
+        P = {
+            name: [
+                _folded_conv_params(block.conv1, block.batch1, 1, dtype, d),
+                _folded_conv_params(block.conv2, block.batch2, 1, dtype, d),
+            ]
+            for name, block in model.named_children()
+            if name.startswith(("down", "up"))
+        }
+        for name in ("up1_fh", "up1_fz", "up2"):
+            w_up, b_up = _conv_params(getattr(model, name).up_conv, torch.float32, "cpu", True)
+            if use_subpixel:
+                w_up, b_up = subpixel_tconv_weights(w_up), b_up.repeat(4)
+            P["tconv_" + name] = (w_up.to(device=d, dtype=dtype).contiguous(), b_up.to(d))
+        P["out"] = _conv_params(model.out_conv, dtype, d)
+        return P
+
+    placed = _PerDevice(params_on, dev)
 
     def same(x, params: _Conv, relu=True, padding=pads):
         return conv_same(x, *params, padding=padding, relu=relu, accum_dtype=dtype, conv=conv)
 
-    def block(x, name: str):
-        for params in folded[name]:
+    def block(x, P, name: str):
+        for params in P[name]:
             x = same(x, params)
         return x
 
-    def tconv(x, name: str):
-        w, b = tconvs[name]
+    def tconv(x, P, name: str):
+        w, b = P["tconv_" + name]
         if use_subpixel:
             return tconv_subpixel(x, w, b, conv, pad=UP_PADDING)
         return conv_transpose_torch(
@@ -251,18 +304,30 @@ def compile_recurrent_apply(
     def join(x, skip):
         return torch.cat([x, x if skip_bug else skip], dim=-1)
 
-    def gate(x, br: str):
-        b = block(x, f"down2_{br}")
-        x = block(max_pool(b, pool), f"down3_{br}")
-        return block(join(tconv(x, f"up1_{br}"), b), f"up1_{br}")
+    def gate(x, P, br: str):
+        b = block(x, P, f"down2_{br}")
+        x = block(max_pool(b, pool), P, f"down3_{br}")
+        return block(join(tconv(x, P, f"up1_{br}"), b), P, f"up1_{br}")
 
+    def timestep(image, s, h):
+        P = placed[image.device]
+        a = block(torch.cat([image, s], dim=-1), P, "down1")
+        x = max_pool(a, pool)
+        hh = torch.tanh(gate(x, P, "fh"))
+        z = torch.sigmoid(gate(x, P, "fz"))
+        h = h * z + (-1.0 * z * hh)  # r_unet.py:155, verbatim
+        x = block(join(tconv(h, P, "up2"), a), P, "up2")
+        return same(x, P["out"], relu=False, padding=0), h
+
+    @exact_float32()
     @torch.no_grad()
     def apply_fn(image: torch.Tensor) -> torch.Tensor:
         B, X, Y, Z, _ = image.shape
         if X % 4 or Y % 4:
             return plain(image)
         image = image.to(device=dev, dtype=dtype).contiguous()
-        geo = _split_geometry(int(split_x), X, halo) if B == 1 else None
+        n = int(split_x)
+        geo = _split_geometry(n, X, halo) if B == 1 else None
         use_split = (
             geo is not None
             and tuple(cfg.kernel) == (3, 3, 3)  # the halo is sized for this radius
@@ -271,25 +336,51 @@ def compile_recurrent_apply(
         )
         if use_split:
             core, tile = geo
-            image = _split_stack(image[0], int(split_x), tile, core)
-            B, X = int(split_x), tile
-        s = torch.zeros((B, X, Y, Z, cfg.out_channels), dtype=dtype, device=dev)
-        h = torch.ones((B, X // 2, Y // 2, Z, c1), dtype=dtype, device=dev)
+            image = _split_stack(image[0], n, tile, core)
+            B, X = n, tile
+        groups = _MeshTiles(mesh, n) if use_split and mesh is not None else None
+        images = groups.place(image) if groups else [image]
+        s = [torch.zeros((*im.shape[:4], cfg.out_channels), dtype=dtype, device=im.device)
+             for im in images]
+        h = [torch.ones((im.shape[0], X // 2, Y // 2, Z, c1), dtype=dtype, device=im.device)
+             for im in images]
         for _ in range(cfg.timesteps):
-            if use_split:
-                s, h = _halo_refresh(s, halo), _halo_refresh(h, halo // 2)
-            a = block(torch.cat([image, s], dim=-1), "down1")
-            x = max_pool(a, pool)
-            hh = torch.tanh(gate(x, "fh"))
-            z = torch.sigmoid(gate(x, "fz"))
-            h = h * z + (-1.0 * z * hh)  # r_unet.py:155, verbatim
-            x = block(join(tconv(h, "up2"), a), "up2")
-            s = same(x, (w_out, b_out), relu=False, padding=0)
+            if groups:
+                s, h = groups.refresh(s, halo), groups.refresh(h, halo // 2)
+            elif use_split:
+                s, h = [_halo_refresh(s[0], halo)], [_halo_refresh(h[0], halo // 2)]
+            s, h = (list(t) for t in zip(*(timestep(im, s_k, h_k)
+                                           for im, s_k, h_k in zip(images, s, h))))
+        out = groups.gather(s, dev) if groups else s[0]
         if use_split:
-            s = _split_unstack(s, halo)
-        return s.float()
+            out = _split_unstack(out, halo)
+        return out.float()
 
     return apply_fn
+
+
+def _first_device(device, mesh) -> torch.device:
+    """The forward's device: ``device``, else the mesh's first device, else
+    CUDA."""
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
+    return resolve_device(device)
+
+
+class _PerDevice(dict):
+    """``params_on(d)`` for each device ``d`` asked for, built at the first
+    ask (``home``'s at once)."""
+
+    def __init__(self, params_on, home):
+        super().__init__()
+        self.params_on = params_on
+        self[canonical_device(home)] = params_on(home)
+
+    def __missing__(self, d):
+        d = canonical_device(d)
+        if d not in self:
+            self[d] = self.params_on(d)
+        return self[d]
 
 
 def compile_rdcnet_apply(
@@ -300,15 +391,16 @@ def compile_rdcnet_apply(
     conv: Callable = conv3d_valid,
     split_x: int = 1,
     halo_x: int = RDCNET_HALO,
+    mesh=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The inference forward of an ``RDCNet``: ``apply(image[B, X, Y, Z,
     C]) -> [B, X', Y', Z', out_channels]`` (float32) on ``device`` (CUDA
-    unless given), equal to the model's eval forward at the same ``dtype``
-    up to rounding.  The recurrence runs in ``dtype`` at half resolution:
-    per iteration the 1×1×1 squeeze, the five dilated 5³ convs and the
-    1×1×1 merge, each a ``conv`` launch (K1 by default); then the 3³ output
-    conv, also K1.  The stride-2 input conv and the transposed conv stay
-    plain PyTorch.
+    unless given; with a ``mesh``, its first device), equal to the model's
+    eval forward at the same ``dtype`` up to rounding.  The recurrence runs
+    in ``dtype`` at half resolution: per iteration the 1×1×1 squeeze, the
+    five dilated 5³ convs and the 1×1×1 merge, each a ``conv`` launch (K1
+    by default); then the 3³ output conv, also K1.  The stride-2 input conv
+    and the transposed conv stay plain PyTorch.
 
     ``split_x=n`` (B=1 only): the recurrence runs as ``n`` overlapping
     x-tiles of the half-resolution features, split after the input conv
@@ -317,21 +409,38 @@ def compile_rdcnet_apply(
     seam columns per iteration; the output conv and the transposed conv
     run on the reassembled tensor.  It needs the half-resolution width to
     be a multiple of ``n`` and a core at least the tile's halos; otherwise
-    the recurrence runs unsplit."""
-    dev = resolve_device(device)
+    the recurrence runs unsplit.  ``mesh``: the tiles spread over its
+    devices as in :func:`compile_recurrent_apply`, the recurrence's weights
+    placed on each."""
+    dev = _first_device(device, mesh)
     cfg: RDCNetConfig = model.config
     blk = model.RDCblock
     w_in, b_in = _conv_params(model.strided_conv, dtype, dev)
-    squeeze = _conv_params(blk.conv, dtype, dev)
-    dilated = [_conv_params(getattr(blk.grouped_conv, f"conv{d}"), dtype, dev) for d in DILATIONS]
-    merge = _conv_params(blk.grouped_conv.out_conv, dtype, dev)
     out = _conv_params(model.out_conv, dtype, dev)
     w_up, b_up = _conv_params(model.transposed_conv, dtype, dev, transposed=True)
+
+    def params_on(d) -> dict:
+        """The recurrence's weights on device ``d``."""
+        return {
+            "squeeze": _conv_params(blk.conv, dtype, d),
+            "dilated": [_conv_params(getattr(blk.grouped_conv, f"conv{k}"), dtype, d)
+                        for k in DILATIONS],
+            "merge": _conv_params(blk.grouped_conv.out_conv, dtype, d),
+        }
+
+    placed = _PerDevice(params_on, dev)
 
     def same(x, params: _Conv, padding=0, dilation=1):
         return conv_same(x, *params, padding=padding, dilation=dilation, accum_dtype=dtype,
                          conv=conv)
 
+    def iteration(x, y):
+        P = placed[x.device]
+        sq = same(torch.cat([x, y], dim=-1), P["squeeze"])
+        outs = [same(sq, p, padding=2 * d, dilation=d) for d, p in zip(DILATIONS, P["dilated"])]
+        return same(torch.cat(outs, dim=-1), P["merge"]) + y
+
+    @exact_float32()
     @torch.no_grad()
     def apply_fn(image: torch.Tensor) -> torch.Tensor:
         image = image.to(device=dev, dtype=dtype).contiguous()
@@ -341,13 +450,16 @@ def compile_rdcnet_apply(
         if geo is not None:
             core, tile = geo
             x = _split_stack(x[0], n, tile, core)
-        y = torch.zeros_like(x)
+        groups = _MeshTiles(mesh, n) if geo is not None and mesh is not None else None
+        xs = groups.place(x) if groups else [x]
+        ys = [torch.zeros_like(x_k) for x_k in xs]
         for _ in range(cfg.timesteps):
-            if geo is not None:
-                y = _halo_refresh(y, int(halo_x))
-            sq = same(torch.cat([x, y], dim=-1), squeeze)
-            outs = [same(sq, p, padding=2 * d, dilation=d) for d, p in zip(DILATIONS, dilated)]
-            y = same(torch.cat(outs, dim=-1), merge) + y
+            if groups:
+                ys = groups.refresh(ys, int(halo_x))
+            elif geo is not None:
+                ys = [_halo_refresh(ys[0], int(halo_x))]
+            ys = [iteration(x_k, y_k) for x_k, y_k in zip(xs, ys)]
+        y = groups.gather(ys, dev) if groups else ys[0]
         if geo is not None:
             y = _split_unstack(y, int(halo_x))
         y = same(y, out, padding=1)

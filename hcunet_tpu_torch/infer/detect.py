@@ -16,8 +16,8 @@ boundary: detector ``(x, y)`` → array ``(det_y + tile_x0, det_x + tile_y0)``.
 CUDA stream and returns without copying results back; the detector's NMS
 steps read one convergence flag each from the card.
 :func:`collect_cell_candidates` copies the results to the host (where it
-waits for the card) and merges them.  The multi-device ``ShardedDetect``
-is not ported yet.
+waits for the card) and merges them.  :class:`ShardedDetect` splits the
+z-plane batch over every device of a mesh.
 """
 
 from __future__ import annotations
@@ -117,6 +117,73 @@ def collect_cell_candidates(
         if progress:
             progress(f"detect tile [{x0}:{x1}, {y0}:{y1}]")
     return candidates if candidates is not None else empty_candidates()
+
+
+class ShardedDetect:
+    """Data-parallel detection over a :class:`~hcunet_tpu_torch.parallel.mesh.Mesh`
+    (twin of the JAX ``ShardedDetect``).
+
+    Each z plane's proposals, RoI heads and NMS are its own, so the batch of
+    planes splits over EVERY mesh device with the per-plane computation
+    untouched: the batch is zero-padded to a multiple of ``mesh.size`` (the
+    padded rows lie beyond the ``Z`` that :func:`collect_cell_candidates`
+    reads), piece ``k`` runs on device ``k`` through a copy of the detector
+    placed there, and the pieces' results are concatenated on ``device``
+    (the detector's own unless given).  Duck-types the detector's ``detect``
+    and ``device`` for :func:`dispatch_cell_candidates`.
+
+    The copies are placed at construction and placed again only when a
+    caller passes a *different* weight tree to :meth:`detect` (an identity
+    check: the steady state pays no placement)."""
+
+    def __init__(self, detector, mesh, device=None):
+        import copy
+
+        from hcunet_tpu_torch.parallel.mesh import canonical_device, tiles_sharding
+
+        self.detector = detector
+        self.device = resolve_device(detector.device if device is None else device)
+        self.placement = tiles_sharding(mesh)
+        home = canonical_device(detector.device)
+        self._replicas = {}
+        for d in self.placement.devices:
+            if d not in self._replicas:
+                if d == home:
+                    self._replicas[d] = detector
+                else:
+                    rep = copy.deepcopy(detector).to(d)
+                    rep.device = d
+                    self._replicas[d] = rep
+        self._src = None  # the weight tree placed last, by identity
+
+    def detect(self, images, variables=None) -> Dict[str, torch.Tensor]:
+        """``images`` ``[B, H, W, 3]``; ``variables`` (optional): a weight
+        tree (the detector's state dict, or the JAX ``{"trunk", "head"}``
+        tree) to detect with, loaded into every copy when it is not the one
+        placed last."""
+        if variables is not None and variables is not self._src:
+            sd = variables
+            if "trunk" in variables:
+                from hcunet_tpu_torch.utils.port_jax import (
+                    detector_state_dict_from_jax_variables,
+                )
+
+                sd = detector_state_dict_from_jax_variables(
+                    variables, self.detector.backbone_name
+                )
+            for rep in self._replicas.values():
+                rep.load_state_dict(sd)
+            self._src = variables
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        n = len(self.placement.devices)
+        Z = images.shape[0]
+        Zp = -(-Z // n) * n
+        if Zp != Z:
+            images = torch.cat([images, images.new_zeros((Zp - Z, *images.shape[1:]))])
+        outs = [self._replicas[piece.device].detect(piece)
+                for piece in self.placement.split(images)]
+        return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
 
 
 def predict_cell_candidates(

@@ -36,12 +36,14 @@ from hcunet_tpu_torch.analysis.cochlea import get_cochlear_length
 from hcunet_tpu_torch.analysis.export import cells_to_csv, render_size
 from hcunet_tpu_torch.analysis.haircell import HairCell, generate_cell_objects
 from hcunet_tpu_torch.config import PipelineConfig, resolve_device
+from hcunet_tpu_torch.core.padding import pad_axes
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.data.transforms import integer_unit_scale
 from hcunet_tpu_torch.infer.candidates import empty_candidates
 from hcunet_tpu_torch.infer.chunks import PART_EXT, Part, reconstruct
 from hcunet_tpu_torch.infer.detect import collect_cell_candidates, dispatch_cell_candidates
 from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
-from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+from hcunet_tpu_torch.infer.tiling import postprocess_epilogue, predict_segmentation_mask
 from hcunet_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -66,8 +68,65 @@ class AnalyzeResult:
     # Bytes over the host<->device link: h2d = chunk uploads, prob_d2h =
     # probability-map fetches, detect_d2h = detection-candidate fetches.
     stage_bytes: Optional[Dict[str, int]] = None
-    # the JAX package's mesh-path accounting; the port has no mesh path yet
+    # Mesh-path accounting (only set by ``analyze(mesh=...)``): {"sharded":
+    # chunks that rode the mesh, "fallback": chunks that ran single-device}
     mesh_chunks: Optional[Dict[str, int]] = None
+
+
+class _ShardedChunkSeg:
+    """Mesh-path segmentation of a chunk of any width (twin of the JAX
+    ``_ShardedChunkSeg``).
+
+    The chunk's X axis is padded up to the shard quantum ``n * eval_x`` and
+    the result cropped back to ``Xc`` *before* the blur epilogue.  The
+    padding repeats the single-device engine's context beyond ``Xc``: a
+    ``px``-wide symmetric mirror, then edge replication (the ragged grid's
+    overhang), and the extension is at least ``eval_x + pad_x`` wide, so
+    no tile holding a true voxel reads the sharded engine's own far-edge
+    halo.  Tiles are the same size at the same offsets in both paths, so
+    every true core is computed from the same inputs, and the epilogue sees
+    the single-device array.  The sharded forward is built at the first
+    chunk."""
+
+    def __init__(self, mesh, n_shards: int, unet_apply, cfg: PipelineConfig, device):
+        self.mesh, self.n = mesh, int(n_shards)
+        self.unet_apply, self.cfg, self.device = unet_apply, cfg, device
+        self.ex = int(cfg.tiles.eval_size[0])
+        self.px = int(cfg.tiles.pad[0])
+        self.quantum = self.n * self.ex
+        self._fn = None
+
+    def padded_width(self, Xc: int) -> Optional[int]:
+        """X after bucket padding, or None when the chunk cannot ride the
+        mesh (the ``px`` mirror cannot exceed the chunk's width)."""
+        if self.px > Xc:
+            return None
+        q = self.quantum
+        Xq = -(-Xc // q) * q
+        # each slab must hold at least one halo and one whole tile column
+        min_xq = -(-(self.n * max(self.px, self.ex)) // q) * q
+        Xq = max(Xq, min_xq)
+        while 0 < Xq - Xc < self.ex + self.px:
+            # one quantum may not cover a tile column and its halo when
+            # pad_x > (n - 1) * eval_x
+            Xq += q
+        return Xq
+
+    def __call__(self, vol: torch.Tensor, Xq: int) -> torch.Tensor:
+        if self._fn is None:
+            from hcunet_tpu_torch.parallel.tiled import sharded_tiled_forward
+
+            self._fn = sharded_tiled_forward(
+                self.unet_apply, self.mesh, self.cfg.unet, self.cfg.tiles,
+                use_probability_map=True, postprocess=None,
+            )
+        Xc = int(vol.shape[1])
+        if Xq > Xc:
+            vol = pad_axes(vol, [(0, self.px), (0, 0), (0, 0)], "symmetric")
+            vol = pad_axes(vol, [(0, Xq - Xc - self.px), (0, 0), (0, 0)], "edge")
+        prob = self._fn(vol)[:, :Xc].to(self.device)
+        cfg = self.cfg
+        return postprocess_epilogue(prob, (cfg.gaussian_sigma, cfg.prob_floor, cfg.prob_scale))
 
 
 def _load_volume(path: str) -> np.ndarray:
@@ -191,14 +250,51 @@ def analyze(
     NMS reads one convergence flag per step, so detection waits for the
     device.
 
-    ``mesh`` (the JAX package's multi-device path) is not ported: anything
-    but None raises ``NotImplementedError``.
+    ``mesh`` (a :class:`~hcunet_tpu_torch.parallel.mesh.Mesh` with a
+    ``spatial`` axis) segments each chunk over the mesh: its X axis split
+    over the ``spatial`` devices with halos copied between neighbours
+    (:func:`~hcunet_tpu_torch.parallel.tiled.sharded_tiled_forward`), the
+    U-Net's forward replicated to each of them
+    (:func:`~hcunet_tpu_torch.parallel.mesh.replicate`).  Every chunk rides
+    the mesh whatever its width: it is bucket-padded to the shard quantum
+    and cropped back before the blur, which keeps the result equal to the
+    single-device one (:class:`_ShardedChunkSeg`); a chunk thinner than
+    the halo runs single-device with a warning, counted in
+    ``AnalyzeResult.mesh_chunks``.  Detection splits each tile's z planes
+    over every mesh device (:class:`~hcunet_tpu_torch.infer.detect.ShardedDetect`).
+    The instance stage and the host tail stay on ``device`` (by default the
+    mesh's first ``spatial`` device), as in JAX.
+
+    Float32 work runs with TF32 off (:func:`~hcunet_tpu_torch.core.precision.exact_float32`).
     """
-    if mesh is not None:
-        raise NotImplementedError("analyze(mesh=...) is not ported yet")
+    with exact_float32():
+        return _analyze(path, volume, unet_apply=unet_apply, detector=detector, cfg=cfg,
+                        work_dir=work_dir, save_plots=save_plots, fit_cochlea=fit_cochlea,
+                        overlap=overlap, mesh=mesh, device=device)
+
+
+def _analyze(path, volume, *, unet_apply, detector, cfg, work_dir, save_plots,
+             fit_cochlea, overlap, mesh, device) -> AnalyzeResult:
     if cfg.prob_transfer_dtype not in _TRANSFER_DTYPES:
         raise ValueError(f"unknown prob_transfer_dtype {cfg.prob_transfer_dtype!r}")
+    sharded_seg = None
+    mesh_chunks: Optional[Dict[str, int]] = None
+    if mesh is not None:
+        from hcunet_tpu_torch.infer.detect import ShardedDetect
+        from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, require_mesh
+
+        if SPATIAL_AXIS not in require_mesh(mesh).axis_names:
+            raise ValueError(f"mesh {mesh.axis_names} has no '{SPATIAL_AXIS}' axis")
+        if device is None:
+            device = mesh.axis_devices(SPATIAL_AXIS)[0]
     dev = resolve_device(device)
+    if mesh is not None:
+        sharded_seg = _ShardedChunkSeg(
+            mesh, int(mesh.shape[SPATIAL_AXIS]), unet_apply, cfg, dev
+        )
+        mesh_chunks = {"sharded": 0, "fallback": 0}
+        if detector is not None:
+            detector = ShardedDetect(detector, mesh, device=dev)
     if overlap is None:
         overlap = True
     if isinstance(overlap, bool):
@@ -317,12 +413,24 @@ def analyze(
                 det_host = (fetched, _copy_event(dev))
 
         with _staged("unet"):
-            prob_dev = predict_segmentation_mask(
-                unet_apply, vol, cfg.unet, cfg.tiles,
-                use_probability_map=True,
-                postprocess=(cfg.gaussian_sigma, cfg.prob_floor, cfg.prob_scale),
-                device=dev,
-            )
+            Xc = chunk.shape[0]
+            Xq = sharded_seg.padded_width(Xc) if sharded_seg is not None else None
+            if Xq is not None:
+                mesh_chunks["sharded"] += 1
+                prob_dev = sharded_seg(vol, Xq)
+            else:
+                if sharded_seg is not None:
+                    mesh_chunks["fallback"] += 1
+                    log.warning(
+                        "%s: chunk X=%d too thin to bucket-pad to the shard quantum %d; "
+                        "running single-device", chunk_id, Xc, sharded_seg.quantum,
+                    )
+                prob_dev = predict_segmentation_mask(
+                    unet_apply, vol, cfg.unet, cfg.tiles,
+                    use_probability_map=True,
+                    postprocess=(cfg.gaussian_sigma, cfg.prob_floor, cfg.prob_scale),
+                    device=dev,
+                )
             del vol
             if cfg.prob_transfer_dtype == "bfloat16":
                 prob_dev = prob_dev.to(torch.bfloat16)
@@ -436,6 +544,7 @@ def analyze(
     )
     return AnalyzeResult(
         mask, unique_mask, all_cells, curve, pct, apex, stage_seconds, stage_bytes,
+        mesh_chunks,
     )
 
 

@@ -1,11 +1,15 @@
 """Serving wrapper: bind model and tile geometry once, segment many volumes
-(twin of ``hcunet_tpu/infer/serving.py``, single device).
+(twin of ``hcunet_tpu/infer/serving.py``).
 
     seg = Segmenter(model, state_dict)            # on CUDA
     mask = seg.predict(volume)                    # [X, Y, Z, C] numpy in, numpy out
 
 Volume shapes are bucketed to multiples of the tile core, as in the JAX
-package, so every request of a bucket runs the same tile shapes.
+package, so every request of a bucket runs the same tile shapes.  With a
+``mesh`` (a :class:`~hcunet_tpu_torch.parallel.mesh.Mesh` with a ``spatial``
+axis), a volume wide enough is split along X over the ``spatial`` devices,
+each running the tile engine on its slab with the forward built on its
+device (:func:`~hcunet_tpu_torch.parallel.tiled.sharded_tiled_forward`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from hcunet_tpu_torch.config import (
     device_hbm_bytes,
     resolve_device,
 )
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.models.unet import UNet
 from hcunet_tpu_torch.utils.logging import get_logger
 
@@ -46,11 +51,24 @@ class Segmenter:
         model's own.  ``packed`` selects the BN-folded serving forward
         (:func:`~hcunet_tpu_torch.infer.compile.compile_serving_apply`);
         otherwise the model's plain forward runs.  ``device`` is CUDA unless
-        given."""
+        given (with a ``mesh``, its first ``spatial`` device).
+
+        ``mesh``: a :class:`~hcunet_tpu_torch.parallel.mesh.Mesh` with a
+        ``spatial`` axis.  ``predict`` then shards a volume's X axis over
+        it, each shard running the tile engine on its device with halos
+        copied from its neighbours, and volumes are bucket-padded so that
+        every shard owns whole tile columns."""
+        self.mesh = mesh
+        self._n_shards = 1
+        self._sharded_fn = None
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device Segmenter (mesh=) is not ported yet"
-            )
+            from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, require_mesh
+
+            if SPATIAL_AXIS not in require_mesh(mesh).axis_names:
+                raise ValueError(f"mesh {mesh.axis_names} has no '{SPATIAL_AXIS}' axis")
+            self._n_shards = int(mesh.shape[SPATIAL_AXIS])
+            if device is None:
+                device = mesh.axis_devices(SPATIAL_AXIS)[0]
         self.device = resolve_device(device)
         self.cfg: UNetConfig = model.config
         dtype = dtype or model.dtype
@@ -70,14 +88,22 @@ class Segmenter:
         )
         self.use_probability_map = use_probability_map
         self.postprocess = postprocess
-        if packed:
+        self.packed = packed
+        self.apply_fn = self._forward_on(self.device)
+
+    def _forward_on(self, device):
+        """The serving forward on ``device``: the BN-folded one
+        (``packed``), else the model's own forward (a copy of the model
+        off ``self.device``)."""
+        if self.packed:
             from hcunet_tpu_torch.infer.compile import compile_serving_apply
 
-            self.apply_fn = compile_serving_apply(
-                self.model, dtype=dtype, device=self.device
-            )
-        else:
-            self.apply_fn = self.model
+            return compile_serving_apply(self.model, dtype=self.model.dtype, device=device)
+        if torch.device(device) == self.device:
+            return self.model
+        import copy
+
+        return copy.deepcopy(self.model).to(device)
 
     @classmethod
     def from_checkpoint(cls, path: str, dtype=None, **kwargs) -> "Segmenter":
@@ -90,14 +116,32 @@ class Segmenter:
 
     # -- shape bucketing ------------------------------------------------------
 
+    def _use_sharded(self, spatial: Sequence[int]) -> bool:
+        """Shard only when every shard holds at least one tile column of
+        real data and the per-shard slab clears the halo constraint
+        (``sharded_tiled_forward`` needs a slab of at least ``max(pad_x,
+        eval_x)``); thinner volumes run the single-device engine."""
+        if self._n_shards <= 1:
+            return False
+        ev_x = int(self.tile_cfg.eval_size[0])
+        if spatial[0] < self._n_shards * ev_x:
+            return False
+        quantum = ev_x * self._n_shards
+        bucket_x = -(-int(spatial[0]) // quantum) * quantum
+        return bucket_x // self._n_shards >= max(int(self.tile_cfg.pad[0]), ev_x)
+
     def bucket_shape(self, spatial: Sequence[int]) -> Tuple[int, ...]:
         """Round a volume shape up to the tile-core grid so distinct inputs
-        share tile shapes."""
+        share tile shapes.  Sharded, X also rounds to whole tile columns per
+        shard (``n_shards * eval_x``)."""
         ev = self.tile_cfg.eval_size
-        return tuple(
-            int(-(-s // e) * e) if s > e else int(s) for s, e in zip(spatial, ev)
-        )
+        bucket = [int(-(-s // e) * e) if s > e else int(s) for s, e in zip(spatial, ev)]
+        if self._use_sharded(spatial):
+            quantum = int(ev[0]) * self._n_shards
+            bucket[0] = int(-(-spatial[0] // quantum) * quantum)
+        return tuple(bucket)
 
+    @exact_float32()
     def predict(self, volume: np.ndarray) -> np.ndarray:
         """``volume``: [X, Y, Z, C] (already normalized).  Returns
         [X, Y, Z] float probabilities (or uint8 mask)."""
@@ -114,17 +158,42 @@ class Segmenter:
             ) else "edge")
             log.info("bucketed %s -> %s", tuple(spatial), bucket)
 
-        out = predict_segmentation_mask(
-            self.apply_fn,
-            np.asarray(volume[None], np.float32),
-            self.cfg,
-            self.tile_cfg,
-            use_probability_map=self.use_probability_map,
-            postprocess=self.postprocess,
-            device=self.device,
-        )
+        image = np.asarray(volume[None], np.float32)
+        if self._use_sharded(spatial):
+            out = self._sharded_forward()(torch.from_numpy(image))
+        else:
+            out = predict_segmentation_mask(
+                self.apply_fn,
+                image,
+                self.cfg,
+                self.tile_cfg,
+                use_probability_map=self.use_probability_map,
+                postprocess=self.postprocess,
+                device=self.device,
+            )
         out = out[0, ..., 0].cpu().numpy()
         return out[: spatial[0], : spatial[1], : spatial[2]]
+
+    def _sharded_forward(self):
+        """Build (once) the multi-device tiled forward for this mesh, with
+        the forward built on each of its ``spatial`` devices."""
+        if self._sharded_fn is None:
+            from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, canonical_device
+            from hcunet_tpu_torch.parallel.tiled import sharded_tiled_forward
+
+            applies = {canonical_device(self.device): self.apply_fn}
+            for d in self.mesh.axis_devices(SPATIAL_AXIS):
+                if d not in applies:
+                    applies[d] = self._forward_on(d)
+            self._sharded_fn = sharded_tiled_forward(
+                applies,
+                self.mesh,
+                self.cfg,
+                self.tile_cfg,
+                use_probability_map=self.use_probability_map,
+                postprocess=self.postprocess,
+            )
+        return self._sharded_fn
 
     def warmup(self, shapes: Sequence[Sequence[int]]) -> None:
         """Run one request of each expected volume shape, so that the kernels

@@ -153,12 +153,17 @@ def _tiled_forward(
     full = full[:, : spatial[0], : spatial[1], : spatial[2], :]
 
     if postprocess is not None:
-        # pipeline epilogue (hcat/main.py:130-132): gaussian blur,
-        # probability floor, rescale — on the device
-        sigma, floor, scale = postprocess
-        full = gaussian_blur(full, sigma, axes=(1, 2, 3))
-        full = torch.where(full < floor, 0.0, full) * scale
+        full = postprocess_epilogue(full, postprocess)
     return full
+
+
+def postprocess_epilogue(prob: torch.Tensor, postprocess: Tuple[float, float, float]) -> torch.Tensor:
+    """The pipeline's epilogue (``hcat/main.py:130-132``) on ``[1, X, Y, Z,
+    C]`` probabilities, on their device: gaussian blur, probability floor,
+    rescale."""
+    sigma, floor, scale = postprocess
+    prob = gaussian_blur(prob, sigma, axes=(1, 2, 3))
+    return torch.where(prob < floor, 0.0, prob) * scale
 
 
 def predict_segmentation_mask(

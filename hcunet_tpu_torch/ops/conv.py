@@ -26,7 +26,9 @@ semantics, and :func:`update_running_stats` flax's running update.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -447,6 +449,26 @@ def batch_norm_inference(
     return (x.float() * inv + shift).to(x.dtype)
 
 
+# the thread's batch-statistics reduction over data replicas (None: the
+# statistics are the local batch's); set by batch_stat_reduction
+_BATCH_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stat_reduction(reduce: Callable):
+    """Within the block, in this thread, :func:`batch_norm_train` takes its
+    statistics over the global batch of a data-parallel step:
+    ``reduce(sums, count)`` maps this replica's ``[2, C]`` float32 sums of
+    ``x`` and ``x * x`` and its element count per channel to the sums and
+    the count over every replica (``hcunet_tpu_torch.parallel.train``)."""
+    prev = getattr(_BATCH_STATS, "reduce", None)
+    _BATCH_STATS.reduce = reduce
+    try:
+        yield
+    finally:
+        _BATCH_STATS.reduce = prev
+
+
 def batch_norm_train(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -462,14 +484,22 @@ def batch_norm_train(
     dtype.  Returns ``(y, mean, var)``; the gradient flows through the
     statistics.  (``F.batch_norm`` keeps the unbiased variance for its
     running update, so the caller updates the running statistics itself,
-    with :func:`update_running_stats`.)"""
+    with :func:`update_running_stats`.)  Inside
+    :func:`batch_stat_reduction` the two means are over every replica's
+    batch: their sums are reduced before the same formula."""
     xf = x.float()
     ax = channel_axis % x.ndim
     axes = tuple(i for i in range(x.ndim) if i != ax)
     shape = [1] * x.ndim
     shape[ax] = -1
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    reduce = getattr(_BATCH_STATS, "reduce", None)
+    if reduce is None:
+        mean, mean_sq = xf.mean(axes), (xf * xf).mean(axes)
+    else:
+        sums, count = reduce(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]),
+                             xf.numel() // xf.shape[ax])
+        mean, mean_sq = sums[0] / count, sums[1] / count
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps) * scale.float()
     y = (xf - mean.view(shape)) * inv.view(shape) + bias.float().view(shape)
     return y.to(x.dtype), mean, var

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from hcunet_tpu_torch.config import resolve_device
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.models.resnet import ResNet
 
 N_CLASSES = 4  # disc, ring, square, stripes
@@ -90,6 +91,7 @@ def classifier_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor
     return sd
 
 
+@exact_float32()
 def pretrain_backbone(
     steps: int = 200,
     batch: int = 16,

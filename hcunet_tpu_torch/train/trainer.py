@@ -25,18 +25,29 @@ each same-padding conv runs K1 forward and K1's input gradient on CUDA.
 
 Checkpoints and training states use the JAX package's formats
 (:mod:`hcunet_tpu_torch.utils.checkpoint`), so either package resumes the
-other's.
+other's.  Steps and fits run float32 with TF32 off
+(:func:`~hcunet_tpu_torch.core.precision.exact_float32`).
+
+With a ``mesh``, a step takes the global batch and runs it data- and
+model-parallel (:class:`~hcunet_tpu_torch.parallel.train.DataModelParallel`):
+the batch split over the ``data`` devices, batch norm on global-batch
+statistics, the loss on the gathered output, large kernels as Cout slices
+on the ``model`` devices.  ``fit`` groups ``data``-axis-size samples into
+each global batch.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from hcunet_tpu_torch.config import resolve_device
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.train.losses import cross_entropy, dice, mse_loss
 from hcunet_tpu_torch.utils.logging import Metrics, get_logger
 
@@ -86,32 +97,53 @@ class UNetTrainer:
         """``model``: the port's ``UNet``, trained in place (moved to
         ``device``, CUDA unless given).  ``variables``: the JAX
         ``{"params", "batch_stats"}`` tree or the port's state dict to start
-        from; None keeps the model's own weights."""
-        if mesh is not None:
-            raise NotImplementedError("multi-device training (mesh=) is not ported yet")
-        self.device = resolve_device(device)
+        from; None keeps the model's own weights.
+
+        ``mesh``: a :class:`~hcunet_tpu_torch.parallel.mesh.Mesh`; steps
+        then take global batches of ``data_size`` (the ``data`` axis's
+        size) samples, run over it, and ``device`` is its first ``data``
+        device."""
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        self._sharded = None
         if variables is not None:
             if "params" in variables:
                 variables = self._state_dict_from_jax(variables)
             model.load_state_dict(variables)
+        if mesh is not None:
+            from hcunet_tpu_torch.parallel.train import DataModelParallel
+
+            self._sharded = DataModelParallel(model, mesh, self._jax_from_state_dict)
+            device = self._sharded.home
+        self.device = resolve_device(device)
+        self.data_size = 1 if self._sharded is None else self._sharded.data_size
         model.to(self.device)
-        self.opt, self.schedule = _make_tx(cfg, model.parameters())
+        leaves = model.parameters() if self._sharded is None else self._sharded.params.leaves()
+        self.opt, self.schedule = _make_tx(cfg, leaves)
         self.metrics = Metrics()
 
+    def _forward(self, image: torch.Tensor) -> torch.Tensor:
+        """The model's training-mode output on the (global) batch."""
+        self.model.train()
+        return self.model(image) if self._sharded is None else self._sharded.forward(image)
+
+    @exact_float32()
     def train_step(self, image, mask, pwl) -> float:
-        """One step on a batch (channels-last numpy arrays or tensors);
-        returns the loss before the step."""
+        """One step on a batch (channels-last numpy arrays or tensors; with
+        a mesh, the global batch); returns the loss before the step."""
         cfg, dev = self.cfg, self.device
         image = torch.as_tensor(image, device=dev, dtype=torch.float32)
         mask = torch.as_tensor(mask, device=dev)
         pwl = None if pwl is None else torch.as_tensor(pwl, device=dev)
-        self.model.train()
-        out = self.model(image)
+        out = self._forward(image)
         loss = cross_entropy(out, mask, pwl, method=cfg.loss_method)
         if cfg.dice_weight:
             loss = loss + cfg.dice_weight * dice(out, mask)
+        return self._apply(loss)
+
+    def _apply(self, loss: torch.Tensor) -> float:
+        """Backpropagate ``loss``, step the optimizer and the schedule."""
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -134,7 +166,10 @@ class UNetTrainer:
 
     @property
     def variables(self) -> Dict:
-        """The JAX ``{"params", "batch_stats"}`` tree of the model, as numpy."""
+        """The JAX ``{"params", "batch_stats"}`` tree of the model, as numpy
+        (with a mesh, the ``model``-axis slices gathered)."""
+        if self._sharded is not None:
+            self._sharded.params.sync_model()
         return self._jax_from_state_dict(self.model.state_dict())
 
     @property
@@ -144,17 +179,33 @@ class UNetTrainer:
         from hcunet_tpu_torch.utils.port_jax import optax_adam_state_from_torch
 
         count = None if self.schedule is None else self.schedule.last_epoch
+        opt = self.opt
+        if self._sharded is not None:
+            # the state of the model's own parameters, the slices' moments gathered
+            opt = SimpleNamespace(state=self._sharded.params.gathered_state(self.opt))
         return optax_adam_state_from_torch(
-            self.opt, self.model, lambda sd: self._jax_from_state_dict(sd)["params"],
+            opt, self.model, lambda sd: self._jax_from_state_dict(sd)["params"],
             self.cfg.weight_decay, count,
         )
 
     def _iter_batches(self, dataset):
-        """Yield the dataset's samples one by one (one device: a batch is a
-        sample)."""
-        for i in range(len(dataset)):
-            yield dataset[i]
+        """Yield global batches: the dataset's samples one by one on one
+        device; with a mesh, groups of ``data_size`` samples stacked along
+        the batch axis (wrapping to fill the last group, so that every step
+        splits evenly)."""
+        n = len(dataset)
+        if self.data_size <= 1:
+            for i in range(n):
+                yield dataset[i]
+            return
+        for g0 in range(0, n, self.data_size):
+            samples = [dataset[(g0 + k) % n] for k in range(self.data_size)]
+            yield tuple(
+                np.concatenate([np.asarray(s[j]) for s in samples], axis=0)
+                for j in range(len(samples[0]))
+            )
 
+    @exact_float32()
     def fit(self, dataset, epochs: Optional[int] = None) -> List[float]:
         """``dataset``: indexable of ``(image, mask, pwl)`` channels-last
         batches.  Returns per-epoch summed losses (the reference trainer's
@@ -224,11 +275,21 @@ class UNetTrainer:
                 f"entries; this TrainConfig's has {want}"
             )
         self.model.load_state_dict(self._state_dict_from_jax(state["variables"]))
-        opt_sd, count = torch_adam_state_from_optax(
-            state["opt_state"], self.opt, self.model,
-            lambda params: self._state_dict_from_jax({"params": params}),
-        )
-        self.opt.load_state_dict(opt_sd)
+        to_sd = lambda params: self._state_dict_from_jax({"params": params})  # noqa: E731
+        if self._sharded is None:
+            opt_sd, count = torch_adam_state_from_optax(state["opt_state"], self.opt, self.model,
+                                                        to_sd)
+            self.opt.load_state_dict(opt_sd)
+        else:
+            # whole moments through an optimizer over the model's own
+            # parameters, then each slice's share onto its device
+            whole = type(self.opt)(self.model.parameters())
+            opt_sd, count = torch_adam_state_from_optax(state["opt_state"], whole, self.model,
+                                                        to_sd)
+            whole.load_state_dict(opt_sd)
+            self._sharded.params.load_model()
+            self.opt.state.clear()
+            self._sharded.params.scatter_state(self.opt, whole.state)
         if (count is None) != (self.schedule is None):
             raise ValueError("the training state and this TrainConfig differ on gamma")
         if self.schedule is not None:
@@ -268,24 +329,21 @@ class RecurrentTrainer(UNetTrainer):
         # the JAX trainer keeps an empty batch_stats for a model without BN
         return {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}
 
+    @exact_float32()
     def train_step(self, image, mask, pwl, vec) -> float:  # type: ignore[override]
-        """One step on a batch; returns the loss before the step."""
+        """One step on a batch (with a mesh, the global batch); returns the
+        loss before the step."""
         cfg, dev = self.cfg, self.device
         image = torch.as_tensor(image, device=dev, dtype=torch.float32)
         mask = torch.as_tensor(mask, device=dev)
         pwl = None if pwl is None else torch.as_tensor(pwl, device=dev)
         vec = torch.as_tensor(vec, device=dev, dtype=torch.float32)
-        self.model.train()
-        out = self.model(image)
+        out = self._forward(image)
         loss = cross_entropy(out[..., 0:1], mask, pwl, method=cfg.loss_method)
         loss = loss + mse_loss(out[..., 2:5], vec)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
-        if self.schedule is not None:
-            self.schedule.step()
-        return float(loss.detach())
+        return self._apply(loss)
 
+    @exact_float32()
     def fit(self, dataset, epochs: Optional[int] = None) -> List[float]:  # type: ignore[override]
         """``dataset``: indexable of ``(image, mask, pwl, com, vec)``
         channels-last batches.  Returns per-epoch summed losses, as the JAX
@@ -299,3 +357,4 @@ class RecurrentTrainer(UNetTrainer):
             summed.append(total)
             self.metrics.write(epoch=e, summed_loss=total)
         return summed
+

@@ -12,8 +12,10 @@ same files; ``test_torch_port_cli_analyze.py`` and
 * ``train-unet``: the port's weights start from another generator than
   JAX's, so the checkpoint it writes is held by JAX's ``load_unet``, whose
   forward must equal the port's within atol 5e-5.
-* ``--spatial-shards 2`` and ``--data-parallel 2`` exit: not ported yet;
-  the default device is CUDA, and without a card the commands raise.
+* ``--spatial-shards 2`` and ``--data-parallel 2`` need two cards with the
+  default device, CUDA, and exit with the JAX message without them
+  (``test_torch_port_parallel_cli.py`` runs them on the CPU); without a
+  card the commands raise.
 
 The shared set-up: one JAX-format U-Net checkpoint (the two-level
 ``SMALL`` net, random weights from a seed, its output conv negated and
@@ -174,7 +176,11 @@ def test_parsers_match_jax():
     ["train-rcnn", "data", "--data-parallel", "2"],
 ])
 def test_multi_device_flags_exit_not_ported(argv):
-    with pytest.raises(SystemExit, match="not ported"):
+    """The multi-device flags run over N distinct cards with ``--device
+    cuda`` (the default): with fewer cards present (none here), the command
+    exits with the JAX command line's message before it reads anything,
+    and never repeats a card."""
+    with pytest.raises(SystemExit, match=r"--(spatial-shards|data-parallel) 2 needs"):
         tcli.main(argv)
 
 

@@ -730,3 +730,65 @@ def test_dot_blocked_raises_on_mixed_devices_and_types(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         dot_blocked(x, torch.zeros((2, 4), device=cuda).t())
     assert DOT_BLOCKED.launches == before
+
+
+def test_sharded_tile_engine_on_one_card_repeated(cuda, monkeypatch):
+    """The X-sharded tile engine on a mesh that repeats the card: every
+    shard runs K1 (the small net's 7 valid convs per tile batch, two tile
+    batches per 32-wide slab), and the gathered map equals the
+    single-device engine's (K1 computes each voxel alike at any batch
+    index; cuDNN's float32 transposed convs are pinned deterministic, or
+    they move the map by ~1e-7 from run to run)."""
+    from hcunet_tpu_torch.config import TileConfig, UNetConfig
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+    from hcunet_tpu_torch.models.unet import init_unet
+    from hcunet_tpu_torch.parallel.mesh import make_mesh
+    from hcunet_tpu_torch.parallel.tiled import sharded_tiled_forward
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = UNetConfig(feature_sizes=(8, 16), kernel1=(3, 3, 2), kernel2=(3, 3, 1),
+                     upsample_kernel=(4, 4, 2), max_pool_kernel=(2, 2, 1),
+                     upsample_stride=(2, 2, 1), groups=1)
+    model = init_unet(cfg, torch.Generator().manual_seed(0)).eval()
+    apply = compile_serving_apply(model, dtype=torch.float32, device=cuda)
+    tiles = TileConfig(eval_size=(16, 24, 8), pad=(16, 16, 2), batch=2)
+    mesh = make_mesh({"spatial": 2}, [cuda] * 2)
+    vol = torch.rand((1, 64, 40, 8, 4), device=cuda)
+    run = sharded_tiled_forward(apply, mesh, cfg, tiles)
+    before = CONV3D_VALID.launches
+    got = run(vol)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID.launches - before == 7 * 2 * 2
+    want = predict_segmentation_mask(apply, vol, cfg, tiles, use_probability_map=True,
+                                     device=cuda)
+    assert torch.equal(got, want)
+
+
+def test_data_parallel_step_launches_per_replica(cuda):
+    """One data-parallel ``UNetTrainer`` step over the card repeated twice:
+    each replica launches K1 for its 7 forward convs and 6 input gradients
+    (none for the first conv), and the loss equals the single-device step's
+    on the global batch within 1e-4."""
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.models.unet import init_unet
+    from hcunet_tpu_torch.parallel.mesh import make_mesh
+    from hcunet_tpu_torch.train.trainer import TrainConfig, UNetTrainer
+
+    cfg = UNetConfig(feature_sizes=(8, 16), kernel1=(3, 3, 2), kernel2=(3, 3, 1),
+                     upsample_kernel=(4, 4, 2), max_pool_kernel=(2, 2, 1),
+                     upsample_stride=(2, 2, 1), groups=1)
+    x = torch.rand((4, 48, 48, 8, 4), device=cuda)
+    mask = (torch.rand((4, 48, 48, 8, 1), device=cuda) > 0.7).float()
+    losses = []
+    for mesh in (make_mesh({"data": 2}, [cuda] * 2), None):
+        trainer = UNetTrainer(init_unet(cfg, torch.Generator().manual_seed(0)), None,
+                              TrainConfig(log_every=0), mesh=mesh,
+                              device=None if mesh else cuda)
+        fwd, grad = CONV3D_VALID.launches, CONV3D_VALID_INPUT_GRAD.launches
+        losses.append(trainer.train_step(x, mask, torch.ones_like(mask)))
+        torch.cuda.synchronize()
+        replicas = 2 if mesh else 1
+        assert CONV3D_VALID.launches - fwd == 7 * replicas
+        assert CONV3D_VALID_INPUT_GRAD.launches - grad == 6 * replicas
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])

@@ -269,5 +269,5 @@ def test_trainer_checks_raise_where_jax_raises():
         list(tr._iter_batches(mixed))
     with pytest.raises(ValueError, match="total_steps"):
         DetectionTrainer(_pair()[2], cfg=DetectionTrainConfig(schedule="cosine"), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         DetectionTrainer(_pair()[2], mesh=object(), device="cpu")

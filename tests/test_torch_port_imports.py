@@ -40,7 +40,9 @@ for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "uti
           "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms",
           "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling",
           "models.runet", "models.rdcnet", "infer.compile_recurrent", "infer.vector_cluster",
-          "ops.peaks", "train.detection_trainer", "train.pretrain", "analysis.detection_metrics"):
+          "ops.peaks", "train.detection_trainer", "train.pretrain", "analysis.detection_metrics",
+          "core.precision", "parallel", "parallel.mesh", "parallel.spatial", "parallel.tiled",
+          "parallel.train"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -53,7 +55,8 @@ def test_port_imports_no_jax_or_jax_package():
     family's (models, serving forward, host clustering) among them, and
     check that neither JAX, flax, optax, msgpack nor the JAX package came
     with it; the detection and recurrent training (detection trainer,
-    backbone pretraining, detection metrics) among them."""
+    backbone pretraining, detection metrics) and the multi-device package
+    (``parallel``: mesh, sharded inference and training) among them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL],
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
@@ -121,15 +124,16 @@ def test_conv_wrapper_takes_plain_version_only_on_cpu():
 
 
 def test_segmenter_mesh_and_checkpoint_not_ported(tmp_path):
-    """``mesh=`` is not ported yet; the checkpoint format is (slice 8):
-    ``from_checkpoint`` reads a checkpoint the port wrote and raises on a
-    missing file."""
+    """``mesh=`` needs a ``spatial`` axis to shard over (slice 12); the
+    checkpoint format (slice 8): ``from_checkpoint`` reads a checkpoint the
+    port wrote and raises on a missing file."""
+    from hcunet_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
     from hcunet_tpu_torch.utils.checkpoint import save_checkpoint
     from hcunet_tpu_torch.utils.port_jax import jax_variables_from_unet_state_dict
 
     cfg, model = _tiny()
-    with pytest.raises(NotImplementedError):
-        Segmenter(model, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="spatial"):
+        Segmenter(model, device="cpu", mesh=make_mesh({DATA_AXIS: 2}, ["cpu"] * 2))
     with pytest.raises(FileNotFoundError):
         Segmenter.from_checkpoint(str(tmp_path / "model.hcunet"), device="cpu")
     path = str(tmp_path / "tiny.hcunet")

@@ -273,7 +273,7 @@ def test_analyze_needs_cuda_unless_cpu(models, tmp_path, monkeypatch):
               work_dir=str(tmp_path / "w"), fit_cochlea=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         analyze(**kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         analyze(mesh=object(), device="cpu", **kw)
     assert not os.path.exists(tmp_path / "w")
 

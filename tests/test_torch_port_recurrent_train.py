@@ -195,7 +195,7 @@ def test_recurrent_checkpoint_round_trip(family, tmp_path):
 
 def test_recurrent_trainer_mesh_not_ported_and_device_explicit(monkeypatch):
     model = jax_recurrent("rdcnet", SPATIAL, **RDCNET)[0]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         RecurrentTrainer(model, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="RecursiveUNet or RDCNet"):
         from hcunet_tpu_torch.models.unet import UNet

@@ -294,7 +294,7 @@ def test_unet_trainer_mesh_not_ported_and_device_explicit(monkeypatch):
     from hcunet_tpu_torch.models.unet import init_unet
 
     model = init_unet(UNetConfig(**SMALL), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         UNetTrainer(model, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -4,6 +4,7 @@ non-trivial random weights, and the same weights in the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hcunet_tpu.config import UNetConfig as JaxUNetConfig
@@ -135,3 +136,41 @@ def assert_trajectories_match(got, want, start, lr, steps, far=FAR, share=1e-3, 
     bound)."""
     for (kind, path), gap in trajectory_gaps(got, want, start, lr, steps, far).items():
         assert gap <= (share if kind == "share" else rtol_stats), (kind, path, gap)
+
+
+# --- multi-device -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One torch thread for a module's runs: the CPU's float32 sums depend
+    on the thread count, and the test workers share the machine's cores
+    (a data-parallel step adds one thread per replica)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def mesh_pair(axis_sizes):
+    """``(port mesh, JAX mesh)`` with the same named axes: the port's over
+    ``["cpu"] * n`` (one device repeated, in one process), JAX's over the
+    first ``n`` of the 8 virtual CPU devices ``tests/conftest.py`` makes."""
+    from hcunet_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from hcunet_tpu_torch.parallel.mesh import make_mesh
+
+    n = int(np.prod(list(axis_sizes.values())))
+    return make_mesh(dict(axis_sizes), ["cpu"] * n), jax_make_mesh(dict(axis_sizes), jax.devices()[:n])
+
+
+@pytest.fixture(scope="module")
+def spatial8():
+    """The 8-way ``spatial`` mesh pair (:func:`mesh_pair`), once per module."""
+    return mesh_pair({"spatial": 8})
+
+
+@pytest.fixture(scope="module")
+def multichip8():
+    """The data 2 × model 2 × spatial 2 mesh pair of
+    ``default_multichip_mesh(8)``, once per module."""
+    return mesh_pair({"data": 2, "model": 2, "spatial": 2})
