@@ -10,8 +10,8 @@ toolkit::
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
 ``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
 (9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
-``rtrain`` (14), ``dtrain`` (15) and ``mesh`` (16); phases 1, 2 (only the
-kernels the chosen phases launch) and 17 always run.  A run of fewer
+``rtrain`` (14), ``dtrain`` (15), ``mesh`` (16) and ``hcat`` (17); phases 1, 2
+(only the kernels the chosen phases launch) and 18 always run.  A run of fewer
 than all phases reports no launch counts (they are the whole main path's)
 and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
@@ -166,10 +166,23 @@ Phases (any failure exits non-zero):
     the global batch of 2 within rtol 1e-4, K1's launches checked each
     step; ms per request and per step beside the card's name and power
     limit;
-17. print one JSON line of kernel rows (``launches``: the count over the
+17. the reference's driver surface (``hcat_phase``) through
+    ``hcunet_tpu_torch.hcat``: the 8 import forms of the reference's
+    drivers with their ``hcat`` prefix rewritten (no JAX, JAX package or
+    ``hcat`` alias in ``sys.modules`` after them); ``r_unet.RecursiveUnet()``
+    and ``RDCNet()`` on the card at the ``recurrent`` phase's 256^2 x 10
+    (B=1, float32) within 1e-5 of the scale of the port's model applied
+    directly on the same weights, K1 170 and 71 launches a forward (all
+    basic); ``train.frcnn`` (2 epochs over 2 synthetic 512^2 sections, the
+    ``dtrain`` phase's detector behind ``rcnn``) against
+    ``DetectionTrainer`` on the same weights within rtol 1e-4; ``loss``'s
+    four functions on CUDA tensors against CPU tensors within 1e-6
+    relative; ``utils.pad_image_with_reflections`` on a CUDA tensor and the
+    four window filters on a CUDA volume equal to the host's and the CPU's;
+18. print one JSON line of kernel rows (``launches``: the count over the
     paths, slices 1-3, the subpixel request, training, the command
-    line's ``analyze``, the recurrent forwards and fits, and the mesh
-    paths, with ``launches_by_path`` beside it; K1's input-gradient rows
+    line's ``analyze``, the recurrent forwards and fits, the mesh paths
+    and the hcat facades, with ``launches_by_path`` beside it; K1's input-gradient rows
     count the three training paths' input-gradient launches), the card
     line, and the result line.
 
@@ -3566,6 +3579,226 @@ def mesh_phase(model, dev, kernels, ref=None) -> dict:
     return {"forward": fwd + train["forward"], "input_grad": train["input_grad"]}
 
 
+# the hcat phase: the reference's driver surface (``hcunet_tpu_torch.hcat``)
+# the import forms of the reference's drivers (``tests/test_reference_drivers.py``),
+# their ``hcat`` prefix rewritten to the port's
+HCAT_IMPORT_FORMS = [
+    "from hcunet_tpu_torch.hcat.main import analyze\n"
+    "from hcunet_tpu_torch.hcat.utils import cells_to_csv",
+    "from hcunet_tpu_torch.hcat import dataloader, utils as u, transforms as t\n"
+    "import hcunet_tpu_torch.hcat.train",
+    "from hcunet_tpu_torch.hcat import haircell",
+    "from hcunet_tpu_torch.hcat.unet import Unet_Constructor as GUnet\n"
+    "import hcunet_tpu_torch.hcat.transforms as t\n"
+    "from hcunet_tpu_torch.hcat import mask as m, utils, segment\n"
+    "import hcunet_tpu_torch.hcat",
+    "from hcunet_tpu_torch.hcat.train import train_utils\n"
+    "mm = train_utils.makeMask(erosion=True)\n"
+    "mpwl = train_utils.makePWL()\n"
+    "com = train_utils.CalculateCenterOfMass()\n"
+    "pix2center = train_utils.VectorToCenter()",
+    "from hcunet_tpu_torch.hcat.r_unet import RecursiveUnet as RUnet, RDCNet",
+    "from hcunet_tpu_torch.hcat.r_unet import StackedDilation, RDCNet",
+    "from hcunet_tpu_torch.hcat.validate.render_size import render_size\n"
+    "from hcunet_tpu_torch.hcat import loss\nfrom hcunet_tpu_torch.hcat import rcnn",
+]
+# K1 launches of one facade forward (10 timesteps, float32, all on the basic
+# path): the RecursiveUNet's 17 same-padding convs a step (its transposed
+# convs are cuDNN's in the eval model), RDCNet's 7 an iteration and its
+# output conv
+HCAT_R_UNET_LAUNCHES = {"RecursiveUnet": 10 * 17, "RDCNet": 10 * 7 + 1}
+HCAT_SECTIONS = 2
+HCAT_EPOCHS = 2
+
+
+def hcat_imports() -> None:
+    """The driver import forms resolve, and neither JAX, the JAX package nor
+    its ``hcat`` alias came with them."""
+    for form in HCAT_IMPORT_FORMS:
+        exec(compile(form, "<driver import>", "exec"), {})
+    leaked = sorted(k for k in sys.modules if k in ("jax", "hcunet_tpu", "hcat")
+                    or k.startswith(("jax.", "hcunet_tpu.", "hcat.")))
+    if leaked:
+        raise AssertionError(f"the hcat driver imports brought in {leaked}")
+
+
+def hcat_r_unet(dev, kernel, card) -> int:
+    """``RecursiveUnet()`` and ``RDCNet()`` of ``hcunet_tpu_torch.hcat.r_unet``
+    on the card (their default device) at the ``recurrent`` phase's geometry
+    (B=1, float32): K1's launches of the timed forward equal to
+    ``HCAT_R_UNET_LAUNCHES``, all basic, and the output within 1e-5 of the
+    scale of the port's model applied directly on the same weights, cuDNN
+    pinned deterministic (the transposed convs vary run to run otherwise).
+    Returns the timed forwards' K1 launches."""
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, 4, *RECURRENT_SCENE)).astype(np.float32))
+    launches = 0
+    torch.backends.cudnn.deterministic = True  # the transposed convs, run to run
+    try:
+        for family, want_n in HCAT_R_UNET_LAUNCHES.items():
+            launches += hcat_r_unet_family(family, want_n, x, dev, kernel, card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return launches
+
+
+def hcat_r_unet_family(family, want_n, x, dev, kernel, card) -> int:
+    """One facade of :func:`hcat_r_unet`; returns its timed forward's K1
+    launches."""
+    from hcunet_tpu_torch.hcat import r_unet
+
+    fac = getattr(r_unet, family)(seed=SEED)
+    if fac.device.type != "cuda":
+        raise AssertionError(f"hcat.r_unet.{family}() sits on {fac.device}, not the card")
+    fac(x)  # warm
+    reset_counts([kernel])
+    got, secs = timed(lambda: fac(x))
+    n, routes = kernel.launches, dict(kernel.route_launches)
+    with torch.no_grad():
+        want = fac.model(x.to(dev).movedim(1, -1).contiguous()).movedim(-1, 1).cpu()
+    gap, equal = share_gap(got, want.numpy())
+    print(f"hcat.r_unet.{family}() {tuple(x.shape)} float32 ({card}): "
+          f"{1e3 * secs:.1f} ms a forward (host clock, numpy in and out); "
+          f"|facade - model| / scale {gap:.3e} (gate 1e-5), bit-equal {equal}; "
+          f"K1 {n} launches {routes} (expected {want_n}, all basic)", flush=True)
+    if (n != want_n or routes.get("ring") or not gap <= 1e-5
+            or got.shape != (1, 5, *RECURRENT_SCENE) or not np.isfinite(got).all()):
+        raise AssertionError(f"hcat.r_unet.{family}: {n} launches {routes}, gap {gap:.3e}, "
+                             f"shape {got.shape}")
+    del fac
+    torch.cuda.empty_cache()
+    return n
+
+
+def hcat_frcnn(dev, card) -> None:
+    """``hcat.train.frcnn`` for ``HCAT_EPOCHS`` epochs over
+    ``HCAT_SECTIONS`` synthetic 512^2 sections with the ``dtrain`` phase's
+    detector behind ``hcat.rcnn``, against ``DetectionTrainer`` on the same
+    weights, sections and recipe: each summed loss finite and within rtol
+    1e-4 (cuDNN pinned deterministic for both runs)."""
+    from hcunet_tpu_torch.config import DetectorConfig
+    from hcunet_tpu_torch.hcat import train
+    from hcunet_tpu_torch.hcat.rcnn import rcnn
+    from hcunet_tpu_torch.train.detection_trainer import DetectionTrainConfig, DetectionTrainer
+
+    samples = [section_sample(SEED + i) for i in range(HCAT_SECTIONS)]
+    dataset = [(img, {"boxes": boxes, "labels": labels}) for img, boxes, labels in samples]
+    start = train_detector().state_dict()
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = rcnn(config=DetectorConfig(num_classes=5), backbone="resnet50")
+        model.detector.load_state_dict(start)
+        if model.detector.device.type != "cuda":
+            raise AssertionError(f"hcat.rcnn() sits on {model.detector.device}, not the card")
+        (_m, got), secs = timed(lambda: train.frcnn(
+            model, dataset, optimizer=None, scheduler=None, epochs=HCAT_EPOCHS,
+            lr=DTRAIN_LR))
+        det = train_detector()
+        det.load_state_dict(start)
+        trainer = DetectionTrainer(det, None, DetectionTrainConfig(
+            learning_rate=DTRAIN_LR, gamma=0.997, classifier_scale=1.0, epochs=HCAT_EPOCHS),
+            steps_per_epoch=len(dataset), device=dev)
+        want, secs_t = timed(lambda: trainer.fit(dataset, epochs=HCAT_EPOCHS))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"hcat.train.frcnn ({card}): {HCAT_EPOCHS} epochs over {HCAT_SECTIONS} sections "
+          f"{DTRAIN_HW} (ResNet50-FPN width 64, float32, {[len(s[2]) for s in samples]} boxes): "
+          f"summed losses {got} against DetectionTrainer {want}, largest relative gap "
+          f"{rel:.3e} (gate 1e-4); {secs:.2f} s (DetectionTrainer {secs_t:.2f} s)", flush=True)
+    if len(got) != HCAT_EPOCHS or not all(math.isfinite(v) for v in got) or not rel <= 1e-4:
+        raise AssertionError(f"hcat.train.frcnn: {got} against {want}")
+
+
+def hcat_loss(dev, card) -> None:
+    """``hcat.loss``'s four functions on channels-first CUDA tensors against
+    the same calls on CPU tensors: the deterministic methods within 1e-6
+    relative; ``method="random"`` (a CUDA generator draws other pixels
+    than a CPU one) finite on both."""
+    from hcunet_tpu_torch.hcat import loss
+
+    rng = np.random.default_rng(SEED)
+    pred = torch.from_numpy(rng.standard_normal((1, 1, *RECURRENT_SCENE)).astype(np.float32))
+    big = (1, 1, *(s + 4 for s in RECURRENT_SCENE))  # a valid-conv target is larger
+    mask = torch.from_numpy((rng.random(big) > 0.7).astype(np.float32))
+    pwl = torch.from_numpy(rng.random(big).astype(np.float32) * 5)
+    calls = {f"cross_entropy {m}": (lambda m: lambda p, k, w: loss.cross_entropy(p, k, w, method=m))(m)
+             for m in ("pixel", "worst_z", "sigmoid")}
+    calls.update(dice=lambda p, k, w: loss.dice(p, k), L1Loss=lambda p, k, w: loss.L1Loss(p, k),
+                 MSELoss=lambda p, k, w: loss.MSELoss(p, k))
+    gaps = {}
+    for name, fn in calls.items():
+        got, want = fn(pred.to(dev), mask.to(dev), pwl.to(dev)), fn(pred, mask, pwl)
+        gaps[name] = abs(got - want) / abs(want)
+        if not (isinstance(got, float) and gaps[name] <= 1e-6):
+            raise AssertionError(f"hcat.loss.{name}: card {got!r}, CPU {want!r}")
+    rnd = [loss.cross_entropy(p, k, w, method="random", num_random_pixels=1000)
+           for p, k, w in ((pred.to(dev), mask.to(dev), pwl.to(dev)), (pred, mask, pwl))]
+    print(f"hcat.loss on the card against the CPU ({card}): relative gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (gate 1e-6); random: card {rnd[0]:.6f}, CPU {rnd[1]:.6f}", flush=True)
+    if not all(math.isfinite(v) for v in rnd):
+        raise AssertionError(f"hcat.loss.cross_entropy random: {rnd}")
+
+
+def hcat_host_parts(dev, card) -> None:
+    """``hcat.utils.pad_image_with_reflections`` on a CUDA tensor stays on
+    the card and equals ``reflection_pad_np``; the four window filters on a
+    CUDA volume equal their CPU results exactly."""
+    from hcunet_tpu_torch.core.padding import reflection_pad_np
+    from hcunet_tpu_torch.hcat.utils import pad_image_with_reflections
+    from hcunet_tpu_torch.ops import filters
+
+    rng = np.random.default_rng(SEED)
+    vol = rng.standard_normal((1, 4, *RECURRENT_SCENE)).astype(np.float32)
+    got = pad_image_with_reflections(torch.from_numpy(vol).to(dev), (30, 30, 6))
+    want = np.moveaxis(reflection_pad_np(np.moveaxis(vol, 1, -1), (30, 30, 6)), -1, 1)
+    if got.device.type != "cuda" or not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError(f"pad_image_with_reflections on the card: {got.device}, "
+                             f"{tuple(got.shape)} against {want.shape}")
+    x = torch.from_numpy(vol[0, 0])
+    cases = {"maximum_filter size 2": lambda t: filters.maximum_filter(t, 2),
+             "maximum_filter size 3 xy": lambda t: filters.maximum_filter(t, 3, axes=(0, 1)),
+             "binary_dilation": lambda t: filters.binary_dilation(t > 0.5),
+             "binary_erosion": lambda t: filters.binary_erosion(t > -0.5),
+             "binary_dilation_n 15 xy": lambda t: filters.binary_dilation_n(t > 2.5, 15,
+                                                                            axes=(0, 1))}
+    for name, fn in cases.items():
+        g, w = fn(x.to(dev)), fn(x)
+        if g.device.type != "cuda" or g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{name} on the card differs from the CPU")
+    print(f"hcat host parts ({card}): pad_image_with_reflections {tuple(got.shape)} on the card "
+          f"equal to reflection_pad_np; {', '.join(cases)} on {tuple(x.shape)} equal to the "
+          f"CPU", flush=True)
+
+
+def hcat_phase(dev, kernel) -> int:
+    """The reference's driver surface on the card, through
+    ``hcunet_tpu_torch.hcat``: the driver import forms, the ``r_unet``
+    facades (their timed forwards' K1 launches counted with the count set to
+    0 just before each), ``train.frcnn`` against ``DetectionTrainer``,
+    ``loss`` on the card against the CPU, and the padding and filters on the
+    card.  Returns the path's K1 launches."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    marks = []
+    hcat_imports()
+    marks.append(("imports", time.perf_counter()))
+    launches = hcat_r_unet(dev, kernel, card)
+    marks.append(("r_unet", time.perf_counter()))
+    hcat_frcnn(dev, card)
+    torch.cuda.empty_cache()
+    marks.append(("frcnn", time.perf_counter()))
+    hcat_loss(dev, card)
+    marks.append(("loss", time.perf_counter()))
+    hcat_host_parts(dev, card)
+    marks.append(("padding and filters", time.perf_counter()))
+    split = ", ".join(f"{name} {t - t0:.1f}" for (name, t), (_n, t0) in
+                      zip(marks, [("start", t_phase)] + marks[:-1]))
+    print(f"hcat phase: {time.perf_counter() - t_phase:.1f} s ({split}; {card})", flush=True)
+    return launches
+
+
 PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
@@ -3581,6 +3814,7 @@ PHASES = {
     "rtrain": ("K1",),
     "dtrain": (),
     "mesh": ("K1",),
+    "hcat": ("K1",),
 }
 
 
@@ -3744,10 +3978,17 @@ def main(argv=None) -> int:
                                  cli_analyze)
         torch.cuda.empty_cache()
         marks.append(("mesh", time.perf_counter()))
+    # phase 17: the reference's driver surface (hcunet_tpu_torch.hcat)
+    hcat_launches = 0
+    if "hcat" in phases:
+        hcat_launches = hcat_phase(dev, CONV3D_VALID)
+        torch.cuda.empty_cache()
+        marks.append(("hcat", time.perf_counter()))
 
-    # phase 17: results.  A kernel's launches are those of the whole main
+    # phase 18: results.  A kernel's launches are those of the whole main
     # path (slices 1-3, the subpixel route, training, the command line, the
-    # recurrent family's serving and training, and the mesh paths):
+    # recurrent family's serving and training, the mesh paths and the hcat
+    # driver surface):
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
@@ -3759,7 +4000,8 @@ def main(argv=None) -> int:
                    "cli": cli_launches if k1 else 0,
                    "recurrent": rec_launches if k1 else 0,
                    "rtrain": rtrain_counts["forward"] if k1 else 0,
-                   "mesh": mesh_counts["forward"] if k1 else 0}
+                   "mesh": mesh_counts["forward"] if k1 else 0,
+                   "hcat": hcat_launches if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
@@ -3780,7 +4022,8 @@ def main(argv=None) -> int:
                        f"{rtrain_counts['input_grad']} K1 input-gradient",
              "dtrain": "detection training no kernel",
              "mesh": f"the mesh paths {mesh_counts['forward']} K1 forward and "
-                     f"{mesh_counts['input_grad']} K1 input-gradient"}
+                     f"{mesh_counts['input_grad']} K1 input-gradient",
+             "hcat": f"the hcat driver surface {hcat_launches} K1"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "

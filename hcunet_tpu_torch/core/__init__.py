@@ -8,7 +8,7 @@ from hcunet_tpu_torch.core.shapes import (
     unet_output_shape,
     unet_shrinkage,
 )
-from hcunet_tpu_torch.core.padding import reflection_pad, pad_to_shape
+from hcunet_tpu_torch.core.padding import reflection_pad, reflection_pad_np, pad_to_shape
 
 __all__ = [
     "calculate_indexes",
@@ -20,5 +20,6 @@ __all__ = [
     "unet_output_shape",
     "unet_shrinkage",
     "reflection_pad",
+    "reflection_pad_np",
     "pad_to_shape",
 ]

@@ -7,12 +7,14 @@ repeated in the mirror (``image[pad-1::-1]``, reference
 ``reflect`` is numpy's ``reflect``, which skips the edge voxel — so both
 "symmetric" and "edge" are built here from per-axis index vectors and
 ``index_select``, channels-last, on whatever device the tensor lives on.
+:func:`reflection_pad_np` is the numpy variant, for arrays on the host.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -58,6 +60,14 @@ def reflection_pad(x: torch.Tensor, pad_size: Sequence[int]) -> torch.Tensor:
         if p > s:
             raise ValueError(f"pad {p} larger than axis size {s}")
     return pad_axes(x, [(int(p), int(p)) for p in pad_size], "symmetric")
+
+
+def reflection_pad_np(x: np.ndarray, pad_size: Sequence[int]) -> np.ndarray:
+    """Host-side variant of :func:`reflection_pad` for numpy arrays
+    (``np.pad(mode="symmetric")``; a pad larger than its axis reflects
+    again, as numpy does)."""
+    widths = [(0, 0)] + [(int(p), int(p)) for p in pad_size] + [(0, 0)]
+    return np.pad(x, widths, mode="symmetric")
 
 
 def pad_to_shape(

@@ -792,3 +792,58 @@ def test_data_parallel_step_launches_per_replica(cuda):
         assert CONV3D_VALID.launches - fwd == 7 * replicas
         assert CONV3D_VALID_INPUT_GRAD.launches - grad == 6 * replicas
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+@pytest.mark.parametrize("family", ["RecursiveUnet", "RDCNet"])
+def test_r_unet_facade_on_the_card_is_the_ports_model(cuda, family, monkeypatch):
+    """The ``hcunet_tpu_torch.hcat.r_unet`` facade on the card (its
+    default device) against the port's eval model applied directly on the
+    same weights on the card: within 1e-5 of the scale (the same ops in the
+    same order, cuDNN's transposed convs pinned deterministic: bit-equal
+    expected), and K1 launched for every same-padding conv of the 10
+    timesteps (RecursiveUNet 17 a step, its transposed convs cuDNN's;
+    RDCNet 7 an iteration and its output conv), all on the basic path in
+    float32."""
+    from hcunet_tpu_torch.hcat import r_unet
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    fac = getattr(r_unet, family)()
+    assert fac.device.type == "cuda"
+    x = torch.randn((1, 4, 32, 32, 6), generator=torch.Generator().manual_seed(0))
+    before = dict(CONV3D_VALID.route_launches)
+    got = fac(x.to(cuda))
+    torch.cuda.synchronize()
+    n = 10 * 17 if family == "RecursiveUnet" else 10 * 7 + 1
+    assert {r: k - before[r] for r, k in CONV3D_VALID.route_launches.items()} == {
+        "basic": n, "ring": 0}
+    with torch.no_grad():
+        want = fac.model(x.to(cuda).movedim(1, -1).contiguous()).movedim(-1, 1).cpu().numpy()
+    assert got.shape == want.shape == (1, 5, 32, 32, 6)
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+
+
+def test_hcat_filters_and_padding_on_the_card_equal_the_cpu(cuda):
+    """The window filters and ``pad_image_with_reflections`` on a CUDA
+    tensor: the result stays on the card and equals the CPU's exactly
+    (maxima and minima do not round)."""
+    from hcunet_tpu_torch.core.padding import reflection_pad_np
+    from hcunet_tpu_torch.hcat.utils import pad_image_with_reflections
+    from hcunet_tpu_torch.ops import filters
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((40, 36, 9)).astype(np.float32))
+    b = torch.from_numpy(rng.random((40, 36, 9)) < 0.3)
+    for fn in (lambda t: filters.maximum_filter(t, 2),
+               lambda t: filters.maximum_filter(t, 5, axes=(0, 1)),
+               lambda t: filters.binary_dilation(t > 0),
+               lambda t: filters.binary_erosion(t > 0, axes=(0, 1)),
+               lambda t: filters.binary_dilation_n(t > 0, 3, axes=(0, 1))):
+        for t in (x, b.float()):
+            got = fn(t.to(cuda))
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), fn(t))
+    vol = torch.from_numpy(rng.standard_normal((1, 4, 40, 36, 9)).astype(np.float32))
+    got = pad_image_with_reflections(vol.to(cuda), (6, 4, 2))
+    assert got.device.type == "cuda"
+    want = np.moveaxis(reflection_pad_np(np.moveaxis(vol.numpy(), 1, -1), (6, 4, 2)), -1, 1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -28,6 +28,10 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import hcunet_tpu_torch
+import hcunet_tpu_torch.hcat as hcat_port
+from hcunet_tpu_torch import compat
+# the reference's top-level names are the facade's, rebound after the submodules
+assert hcat_port.unet is compat.unet and hcat_port.rcnn is compat.rcnn
 names = [m.name for m in pkgutil.walk_packages(hcunet_tpu_torch.__path__, "hcunet_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
@@ -35,14 +39,17 @@ leaked = sorted(k for k in sys.modules
                 if k in ("jax", "msgpack", "optax", "hcunet_tpu")
                 or k.startswith(("jax.", "jaxlib", "flax", "msgpack.", "optax.", "hcunet_tpu.", "hcat")))
 print(len(names), leaked)
-assert len(names) >= 60, names
+assert len(names) >= 80, names
 for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "utils.checkpoint",
           "utils._flax_msgpack", "core.rng", "data.datasets", "data.transforms",
           "cli", "compat", "apps.batch", "analysis.validate", "utils.profiling",
           "models.runet", "models.rdcnet", "infer.compile_recurrent", "infer.vector_cluster",
           "ops.peaks", "train.detection_trainer", "train.pretrain", "analysis.detection_metrics",
           "core.precision", "parallel", "parallel.mesh", "parallel.spatial", "parallel.tiled",
-          "parallel.train"):
+          "parallel.train", "analysis.viz", "hcat", "hcat.main", "hcat.unet", "hcat.rcnn",
+          "hcat.haircell", "hcat.mask", "hcat.validate", "hcat.validate.render_size",
+          "hcat.utils", "hcat.transforms", "hcat.dataloader", "hcat.segment", "hcat.loss",
+          "hcat.r_unet", "hcat.train", "hcat.train.train_utils"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -55,8 +62,12 @@ def test_port_imports_no_jax_or_jax_package():
     family's (models, serving forward, host clustering) among them, and
     check that neither JAX, flax, optax, msgpack nor the JAX package came
     with it; the detection and recurrent training (detection trainer,
-    backbone pretraining, detection metrics) and the multi-device package
-    (``parallel``: mesh, sharded inference and training) among them."""
+    backbone pretraining, detection metrics), the multi-device package
+    (``parallel``: mesh, sharded inference and training), ``analysis.viz``
+    and the reference's driver surface (``hcunet_tpu_torch.hcat`` and its
+    submodules, whose top-level ``unet``/``rcnn`` must be the facade's)
+    among them; neither the JAX package nor its ``hcat`` alias comes with
+    them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL],
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
