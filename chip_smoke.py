@@ -28,7 +28,9 @@ Phases (any failure exits non-zero):
    timing the kernel, the plain version and cuDNN's ``F.conv3d``; each row
    names K1's path (``k1_route``: ``ring`` or ``basic``), and the sums over
    the 15 layers and over the ring layers are printed beside cuDNN's and
-   the bound's;
+   the bound's (float32: all 15 on the basic path); then the basic path at
+   the distinct convs of an ``RDCNet`` forward at 256^2 x 10 in bfloat16
+   and float32, padded inside the kernel (rows ``k1_rdcnet_*``);
 4. hold K3 against its plain version at the TPU probe's two shapes and at
    the GEMM shape (M, K, N) of each of the 15 K1 layers (a random dense A),
    in bfloat16 and float32, timing the kernel, the plain version and
@@ -117,8 +119,9 @@ Phases (any failure exits non-zero):
     random weights from the seed; K1 against its plain version at every
     distinct same-padding conv of both serving forwards (the stacked
     parity convs and RDCNet's five dilations among them) in bf16 and
-    float32, timed beside cuDNN's padded ``F.conv3d``, the pad and the
-    bound; ``compile_recurrent_apply`` in bf16 at B=1 with ``split_x`` 1
+    float32 on the unpadded input with the padding, timed beside cuDNN's
+    padded ``F.conv3d``, the pad (0 on the basic path, which pads inside
+    the kernel) and the bound; ``compile_recurrent_apply`` in bf16 at B=1 with ``split_x`` 1
     and 4 and (RecursiveUNet) a batch of 4, MVx/s, 200 K1 launches a
     RecursiveUNet forward (190 ring) and 71 an RDCNet one (all basic);
     float32 splits equal to unsplit, the K1 forward against one on the
@@ -133,8 +136,10 @@ Phases (any failure exits non-zero):
     step (RecursiveUNet 170 forward, 169 input-gradient; RDCNet 71 and
     71); 3 K1 steps against 3 on the plain conv within the gaps of
     jittered plain runs; K1's input gradient at every shape of a training
-    step (5^3 at dilations 1-5, Cin 9-64) against its plain version, timed
-    beside cuDNN's dgrad of the padded conv and the bound; fault F4's TF32
+    step (5^3 at dilations 1-5, Cin 9-64; the output gradient padded by
+    d (k - 1) - p, inside the kernel on the basic path) against its plain
+    version, timed beside cuDNN's dgrad of the padded conv, the ring path's
+    pad of the output gradient (0 on the basic path) and the bound; fault F4's TF32
     gap of the first losses; the trained gate of
     ``tests/test_recurrent_trained_gate.py`` (RDCNet, 300 steps, at least
     half the cells matched at IoU >= 0.5); ``train-recurrent`` and
@@ -344,11 +349,13 @@ def in_range_taps(n, p, k, d) -> int:
 def check_kernel(name, x, w, b, relu, dilation=1, pad=None):
     """K1 against its plain version on one input (``w`` in ``x``'s dtype);
     returns a row.  ``pad``: for a same-padding conv (``conv_same``), the
-    zero padding ``(px, py, pz)`` that ``x`` already holds; the library
-    time is then cuDNN's ``F.conv3d`` with that padding on the unpadded
-    input, the bound counts the bytes of the unpadded input and the
-    operations of the taps inside it, and the row also gives the pad's own
-    time (``pad_ms``)."""
+    zero padding ``(px, py, pz)`` of the unpadded input ``x``: K1 is called
+    with ``padding=pad`` as ``conv_same`` calls it.  The basic path pads
+    inside the kernel (``pad_ms`` 0); on the ring path the wrapper pads a
+    copy, and the row times the kernel on the padded copy and the pad
+    alone (``pad_ms``).  The library time is cuDNN's ``F.conv3d`` with that
+    padding, and the bound counts the bytes of the unpadded input and the
+    operations of the taps inside it."""
     from hcunet_tpu_torch.ops.conv import (
         CONV3D_VALID,
         conv3d_valid,
@@ -357,48 +364,44 @@ def check_kernel(name, x, w, b, relu, dilation=1, pad=None):
     )
 
     dtype, x_shape = x.dtype, tuple(x.shape)
+    padding = (0, 0, 0) if pad is None else tuple(pad)
     k1_route = conv3d_valid_route(dtype, w.shape[3], w.shape[4])
     before = dict(CONV3D_VALID.route_launches)
-    got = conv3d_valid(x, w, b, relu, dilation)
+    got = conv3d_valid(x, w, b, relu, dilation, padding)
     taken = [r for r, n in CONV3D_VALID.route_launches.items() if n != before[r]]
     if taken != [k1_route]:
         raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
-    want = conv3d_valid_plain(x, w, b, relu, dilation)
+    want = conv3d_valid_plain(x, w, b, relu, dilation, padding)
     torch.cuda.synchronize()
     err, tol = kernel_error(got, want)
     del got, want
 
     w_cf = w.permute(4, 3, 0, 1, 2)
     b_lib = b.to(dtype)
-    kernel_ms = cuda_ms(lambda: conv3d_valid(x, w, b, relu, dilation))
-    plain_ms = cuda_ms(lambda: conv3d_valid_plain(x, w, b, relu, dilation))
-    pad_ms = None
-    if pad is None:
-        x_cf = x.permute(0, 4, 1, 2, 3)
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(x_cf, w_cf, b_lib,
-                                                                dilation=dilation))
-    else:
+    x_cf = x.permute(0, 4, 1, 2, 3)
+    plain_ms = cuda_ms(lambda: conv3d_valid_plain(x, w, b, relu, dilation, padding))
+    library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(
+        x_cf, w_cf, b_lib, padding=padding, dilation=dilation))
+    pad_ms = None if pad is None else 0.0
+    if pad is not None and k1_route == "ring":
         px, py, pz = pad
-        core = x[:, px:x_shape[1] - px, py:x_shape[2] - py, pz:x_shape[3] - pz].contiguous()
-        x_cf = core.permute(0, 4, 1, 2, 3)
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv3d(
-            x_cf, w_cf, b_lib, padding=pad, dilation=dilation))
-        pad_ms = cuda_ms(lambda: torch.nn.functional.pad(core, (0, 0, pz, pz, py, py, px, px)))
-        del core, x_cf
+        pad_ms = cuda_ms(lambda: torch.nn.functional.pad(x, (0, 0, pz, pz, py, py, px, px)))
+        xp = torch.nn.functional.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous()
+        kernel_ms = cuda_ms(lambda: conv3d_valid(xp, w, b, relu, dilation))
+        del xp
+    else:
+        kernel_ms = cuda_ms(lambda: conv3d_valid(x, w, b, relu, dilation, padding))
+    del x_cf
 
     kx, ky, kz, cin, cout = w.shape
     out_vox = x_shape[0] * math.prod(
-        s - dilation * (k - 1) for s, k in zip(x_shape[1:4], (kx, ky, kz)))
+        s + 2 * p - dilation * (k - 1) for s, p, k in zip(x_shape[1:4], padding, (kx, ky, kz)))
     es = x.element_size()
-    if pad is None:
-        pairs, x_elems = out_vox * kx * ky * kz, x.numel()
-    else:
-        # the same conv on the unpadded input: only the (output, tap) pairs
-        # whose tap falls inside it do work, and only it has to be read
-        core = [s - 2 * p for s, p in zip(x_shape[1:4], pad)]
-        pairs = x_shape[0] * math.prod(
-            in_range_taps(n, p, k, dilation) for n, p, k in zip(core, pad, (kx, ky, kz)))
-        x_elems = x_shape[0] * math.prod(core) * cin
+    # only the (output, tap) pairs whose tap falls inside the input do work,
+    # and only the input itself has to be read
+    pairs = x_shape[0] * math.prod(
+        in_range_taps(n, p, k, dilation) for n, p, k in zip(x_shape[1:4], padding, (kx, ky, kz)))
+    x_elems = x.numel()
     flops = 2.0 * pairs * cin * cout
     nbytes = (x_elems + w.numel() + out_vox * cout) * es + b.numel() * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
@@ -422,7 +425,8 @@ def check_kernel(name, x, w, b, relu, dilation=1, pad=None):
         row["pad_ms"] = pad_ms
     print(
         f"  {row['name']:34s} {k1_route:5s} x{list(x_shape)} w{list(w.shape)}"
-        + (f" d{dilation}" if dilation != 1 else "") + f" err {err:.3e} "
+        + (f" d{dilation}" if dilation != 1 else "")
+        + (f" p{list(padding)}" if pad is not None else "") + f" err {err:.3e} "
         f"(tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
         f"cudnn {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms "
         f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)"
@@ -1162,7 +1166,13 @@ def gemm_shape(x_shape, w) -> tuple:
 
 def k1_phase(layers, gen, dev) -> list:
     """Phase 3: K1 against its plain version at the 15 layer shapes of the
-    serving forward and the TPU probe's case 1, in bfloat16 and float32."""
+    serving forward and the TPU probe's case 1, in bfloat16 and float32,
+    then at the distinct convs of an ``RDCNet`` forward at
+    ``RECURRENT_SCENE`` (all on the basic path, padded in the kernel), in
+    bfloat16 and float32."""
+    from hcunet_tpu_torch.config import RDCNetConfig
+    from hcunet_tpu_torch.models.rdcnet import RDCNet
+
     xs, ws = PROBE_CASE_1
     probe_w = torch.randn(ws, generator=gen) / math.sqrt(math.prod(ws[:4]))
     probe_b = torch.randn(ws[-1], generator=gen) * 0.1
@@ -1180,6 +1190,8 @@ def k1_phase(layers, gen, dev) -> list:
             del x
             torch.cuda.empty_cache()
     k1_sums(rows)
+    rdcnet = build_recurrent(RDCNet(RDCNetConfig()), torch.Generator().manual_seed(SEED)).to(dev)
+    rows += recurrent_k1_rows("rdcnet", rdcnet, dev, gen_dev, tag="k1_rdcnet")
     return rows
 
 
@@ -1290,10 +1302,10 @@ def plain_conv(jitter=None):
 
     kernel = conv_mod.conv3d_valid
 
-    def plain(x, w, b=None, relu=False, dilation=1):
+    def plain(x, w, b=None, relu=False, dilation=1, padding=0):
         if jitter is None:
-            return conv_mod.conv3d_valid_plain(x, w, b, relu, dilation)
-        y = conv_mod.conv3d_valid_plain(x.float(), w.float(), b, relu, dilation)
+            return conv_mod.conv3d_valid_plain(x, w, b, relu, dilation, padding)
+        y = conv_mod.conv3d_valid_plain(x.float(), w.float(), b, relu, dilation, padding)
         u = torch.rand(y.shape, generator=jitter, device=y.device) * 2 - 1
         return (y * (1 + JITTER * u)).to(x.dtype)
 
@@ -1310,15 +1322,15 @@ def plain_conv(jitter=None):
 
 @contextlib.contextmanager
 def recording_input_grad(records):
-    """Record ``(gy shape, w, dilation)`` of every input-gradient call while
-    it runs as usual (through K1 on the card)."""
+    """Record ``(gy shape, w, dilation, padding)`` of every input-gradient
+    call while it runs as usual (through K1 on the card)."""
     import hcunet_tpu_torch.ops.conv as conv_mod
 
     kernel = conv_mod.conv3d_valid_input_grad
 
-    def record(gy, w, dilation=1):
-        records.append((tuple(gy.shape), w.detach().clone(), dilation))
-        return kernel(gy, w, dilation)
+    def record(gy, w, dilation=1, padding=0):
+        records.append((tuple(gy.shape), w.detach().clone(), dilation, padding))
+        return kernel(gy, w, dilation, padding)
 
     conv_mod.conv3d_valid_input_grad = record
     try:
@@ -1405,13 +1417,18 @@ def trajectory_gap(kernel, plain, jittered, start, dtype, lr=FIT_LR) -> str:
 def check_input_grad(name, gy, w, dilation, pad=None) -> dict:
     """K1's input gradient against its plain version on one output gradient
     ``gy`` (``w`` in its dtype); returns a row.  ``pad``: for a same-padding
-    conv (``conv_same``), the zero padding its input took; the input
-    gradient is then wanted on the unpadded input only, so the library time
-    is cuDNN's dgrad of the padded conv and the bound counts the unpadded
-    input's bytes and only the (voxel, tap) pairs inside it
-    (``in_range_taps``), as the same-pad forward's row does."""
+    conv (``conv_same``), the zero padding of its input; the input gradient
+    is the unpadded input's (K1 on ``gy`` with padding d (k - 1) - pad: in
+    the kernel on the basic path, ``pad_ms`` 0; a padded copy on the ring
+    path, where the row times the kernel on the padded copy and the
+    ``F.pad`` alone, ``pad_ms``, as :func:`check_kernel` does; the kernel
+    time is K1's launch on the flipped kernel, without the wrapper's flip
+    and pad), the library time is cuDNN's dgrad of the padded conv and the
+    bound counts the unpadded input's bytes and only the (voxel, tap) pairs
+    inside it (``in_range_taps``), as the same-pad forward's row does."""
     from hcunet_tpu_torch.ops.conv import (
         CONV3D_VALID_INPUT_GRAD,
+        conv3d_valid,
         conv3d_valid_input_grad,
         conv3d_valid_input_grad_plain,
         conv3d_valid_route,
@@ -1420,26 +1437,37 @@ def check_input_grad(name, gy, w, dilation, pad=None) -> dict:
     dtype = gy.dtype
     kx, ky, kz, cin, cout = w.shape
     k1_route = conv3d_valid_route(dtype, cout, cin)
+    pads = (0, 0, 0) if pad is None else tuple(pad)
     before = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
-    got = conv3d_valid_input_grad(gy, w, dilation)
+    got = conv3d_valid_input_grad(gy, w, dilation, pads)
     taken = [r for r, n in CONV3D_VALID_INPUT_GRAD.route_launches.items() if n != before[r]]
     if taken != [k1_route]:
         raise AssertionError(f"{name}: K1 took the path(s) {taken}, expected {k1_route}")
-    want = conv3d_valid_input_grad_plain(gy, w, dilation)
+    want = conv3d_valid_input_grad_plain(gy, w, dilation, pads)
     torch.cuda.synchronize()
     err, tol = kernel_error(got, want)
-    pads = (0, 0, 0) if pad is None else tuple(pad)
-    in_size = (gy.shape[0], cin, *(n - 2 * p for n, p in zip(got.shape[1:4], pads)))
+    in_size = (gy.shape[0], cin, *got.shape[1:4])
     del got, want
 
     gy_cf = gy.permute(0, 4, 1, 2, 3)
     w_cf = w.permute(4, 3, 0, 1, 2)
-    kernel_ms = cuda_ms(lambda: conv3d_valid_input_grad(gy, w, dilation))
-    plain_ms = cuda_ms(lambda: conv3d_valid_input_grad_plain(gy, w, dilation))
+    plain_ms = cuda_ms(lambda: conv3d_valid_input_grad_plain(gy, w, dilation, pads))
     library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_input(
         in_size, w_cf, gy_cf, dilation=dilation, padding=pads))
     es = gy.element_size()
     dils = (dilation,) * 3 if isinstance(dilation, int) else tuple(dilation)
+    gp = [d * (k - 1) - p for d, k, p in zip(dils, (kx, ky, kz), pads)]
+    wt = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    pad_ms = 0.0
+    if k1_route == "ring":
+        pad = (0, 0, gp[2], gp[2], gp[1], gp[1], gp[0], gp[0])
+        pad_ms = cuda_ms(lambda: torch.nn.functional.pad(gy, pad))
+        gyp = torch.nn.functional.pad(gy, pad).contiguous()
+        kernel_ms = cuda_ms(lambda: conv3d_valid(gyp, wt, dilation=dils))
+        del gyp
+    else:
+        kernel_ms = cuda_ms(lambda: conv3d_valid(gy, wt, dilation=dils, padding=gp))
+    del wt
     taps = math.prod(in_range_taps(n, p, k, d)
                      for n, p, k, d in zip(in_size[2:], pads, (kx, ky, kz), dils))
     flops = 2.0 * gy.shape[0] * taps * cin * cout
@@ -1463,12 +1491,13 @@ def check_input_grad(name, gy, w, dilation, pad=None) -> dict:
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
+        "pad_ms": pad_ms,
     }
     print(
         f"  {row['name']:44s} {k1_route:5s} gy{list(gy.shape)} w{list(w.shape)} err {err:.3e} "
         f"(tol {tol:.3e}) kernel {kernel_ms:8.3f} ms plain {plain_ms:8.3f} ms "
         f"cudnn dgrad {library_ms:8.3f} ms bound {row['bound_ms']:7.3f} ms "
-        f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
+        f"({row['bound_by']}, {flops / kernel_ms / 1e9:.1f} TFLOP/s) pad {pad_ms:.3f} ms",
         flush=True,
     )
     if not err <= tol:
@@ -1594,14 +1623,14 @@ def train_phase(dev) -> tuple:
     # out_conv back to down0.conv2 (down0.conv1's input needs none)
     names = list(reversed(LAYER_NAMES))[:14]
     shapes = list(reversed(layer_weight_shapes(UNetConfig.production_3d())))[:14]
-    got_shapes = [(w.shape[3], w.shape[4]) for _s, w, _d in records]
+    got_shapes = [(w.shape[3], w.shape[4]) for _s, w, _d, _p in records]
     if got_shapes != shapes:
         raise AssertionError(f"recorded input gradients {got_shapes}, expected {shapes}")
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         print(f"K1 input gradient vs plain, {dtype}:")
-        for name, (gy_shape, w, dil) in zip(names, records):
+        for name, (gy_shape, w, dil, _p) in zip(names, records):
             gy = torch.randn(gy_shape, generator=gen_dev, device=dev).to(dtype)
             rows.append(check_input_grad(name, gy, w.to(dtype).contiguous(), dil))
             del gy
@@ -2108,17 +2137,19 @@ def record_recurrent_convs(model, dev, names) -> tuple:
     recording plain conv (no kernel launch).  Returns the distinct convs
     ``(name, x shape (padded), w, b, relu, dilation, pad)`` in the order
     they first run, with ``names`` naming the convs of one step, and every
-    call's label and record.  Every recurrent conv
-    keeps its size, so its padding is ``dilation * (k - 1) / 2``."""
+    call's label and record.  Every recurrent conv keeps its size, so its
+    padding (what ``conv_same`` passes) is ``dilation * (k - 1) / 2``."""
     from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
     from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
 
     calls = []
 
-    def recording_conv(x, w, b, relu, dilation=1):
-        calls.append((tuple(x.shape), w, b, relu, tuple(dilation) if not isinstance(
-            dilation, int) else (dilation,) * 3))
-        return conv3d_valid_plain(x, w, b, relu, dilation)
+    def recording_conv(x, w, b, relu, dilation=1, padding=0):
+        dil = (dilation,) * 3 if isinstance(dilation, int) else tuple(dilation)
+        pad = (padding,) * 3 if isinstance(padding, int) else tuple(padding)
+        padded = (x.shape[0], *(n + 2 * p for n, p in zip(x.shape[1:4], pad)), x.shape[4])
+        calls.append((padded, w, b, relu, dil))
+        return conv3d_valid_plain(x, w, b, relu, dilation, padding)
 
     apply = compile_recurrent_apply(model, dtype=torch.bfloat16, device=dev, conv=recording_conv)
     apply(torch.zeros((1, *RECURRENT_SCENE, model.config.in_channels), device=dev))
@@ -2139,11 +2170,13 @@ def record_recurrent_convs(model, dev, names) -> tuple:
     return out, labels, calls
 
 
-def recurrent_k1_rows(family, model, dev, gen_dev) -> list:
+def recurrent_k1_rows(family, model, dev, gen_dev, tag=None) -> list:
     """K1 against its plain version at each distinct conv of ``model``'s
-    serving forward at ``RECURRENT_SCENE``, bf16 and float32, timed beside
+    serving forward at ``RECURRENT_SCENE``, bf16 and float32, on the
+    unpadded input with the padding as ``conv_same`` passes it, timed beside
     the plain version, cuDNN's ``F.conv3d`` with the same padding, the pad
-    and the bound; then the sums over one forward's launches."""
+    (0 on the basic path) and the bound; then the sums over one forward's
+    launches.  ``tag`` (default ``family``) starts the rows' names."""
     names = RUNET_CONVS if family == "runet" else RDCNET_CONVS
     convs, labels, calls = record_recurrent_convs(model, dev, names)
     rows = []
@@ -2155,9 +2188,7 @@ def recurrent_k1_rows(family, model, dev, gen_dev) -> list:
         for label, xs, w, b, relu, dil, pad in convs:
             core = [s - 2 * p for s, p in zip(xs[1:4], pad)]
             x = torch.randn((xs[0], *core, xs[4]), generator=gen_dev, device=dev).to(dtype)
-            px, py, pz = pad
-            x = torch.nn.functional.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous()
-            row = check_kernel(f"{family}_{label}", x, w.to(dtype).contiguous(), b, relu,
+            row = check_kernel(f"{tag or family}_{label}", x, w.to(dtype).contiguous(), b, relu,
                                dilation=dil, pad=pad)
             by_key[(xs, tuple(w.shape), relu, dil)] = row
             rows.append(row)
@@ -2612,12 +2643,10 @@ def rtrain_parity(family, dtype, batch, dev, kernels) -> None:
           + f" ({', '.join(runs)}); {line}", flush=True)
 
 
-def rtrain_input_grad_rows(family, batch, dev, step_ms) -> list:
-    """K1's input gradient at every distinct shape one training step of
-    ``family`` gives it (recorded from a bf16 step), against its plain
-    version in bf16 and float32, timed beside cuDNN's dgrad of the padded
-    conv and the bound of the unpadded input; then the sums over one step's
-    calls beside ``step_ms`` (``{dtype name: ms a step}``)."""
+def rtrain_grad_shapes(family, batch, dev) -> tuple:
+    """The input-gradient calls of one bf16 training step of ``family`` on
+    ``batch``: ``{(gy shape, w shape, dilation, padding): [w, calls]}`` and
+    the number of calls."""
     records = []
     model = recurrent_model(family, torch.bfloat16)
     trainer = rtrain_trainer(model, dev)
@@ -2626,22 +2655,33 @@ def rtrain_input_grad_rows(family, batch, dev, step_ms) -> list:
         trainer.train_step(tensors[0], tensors[1], tensors[2], tensors[4])
     del trainer, model
     shapes = {}
-    for gy_shape, w, dil in records:
+    for gy_shape, w, dil, padding in records:
         d = dil if isinstance(dil, int) else dil[0]
-        key = (gy_shape, tuple(w.shape), d)
+        # conv_same's symmetric padding, as Conv3dValidFunction carries it
+        pad = tuple(lo for lo, _hi in padding)
+        key = (gy_shape, tuple(w.shape), d, pad)
         if key not in shapes:
             shapes[key] = [w, 0]
         shapes[key][1] += 1
+    return shapes, len(records)
+
+
+def rtrain_input_grad_rows(family, batch, dev, step_ms) -> list:
+    """K1's input gradient at every distinct shape one training step of
+    ``family`` gives it (recorded from a bf16 step), against its plain
+    version in bf16 and float32, timed beside cuDNN's dgrad of the padded
+    conv and the bound of the unpadded input; then the sums over one step's
+    calls beside ``step_ms`` (``{dtype name: ms a step}``)."""
+    shapes, n_calls = rtrain_grad_shapes(family, batch, dev)
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         print(f"{family}: K1 input gradient at the {len(shapes)} distinct shapes of a training "
-              f"step ({len(records)} calls) vs plain, {dt}:", flush=True)
-        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-        for (gy_shape, w_shape, d), (w, count) in shapes.items():
+              f"step ({n_calls} calls) vs plain, {dt}:", flush=True)
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "pad_ms"), 0.0)
+        for (gy_shape, w_shape, d, pad), (w, count) in shapes.items():
             k = w_shape[0]
-            pad = (d * (k - 1) // 2,) * 3
             name = f"{family} k{k} d{d} {w_shape[3]}->{w_shape[4]}"
             gy = torch.randn(gy_shape, generator=gen_dev, device=dev).to(dtype)
             row = check_input_grad(name, gy, w.to(dtype).contiguous(), d, pad)
@@ -2651,12 +2691,13 @@ def rtrain_input_grad_rows(family, batch, dev, step_ms) -> list:
                 sums[key] += count * row[key]
             del gy
         torch.cuda.empty_cache()
-        print(f"{family} K1 input gradient {dt}, one training step ({len(records)} calls): "
+        print(f"{family} K1 input gradient {dt}, one training step ({n_calls} calls): "
               f"kernel {sums['ms']:.3f} ms ({100 * sums['ms'] / step_ms[dt]:.1f}% of the "
               f"{step_ms[dt]:.3f} ms step), cuDNN dgrad {sums['library_ms']:.3f} ms "
               f"(kernel/cuDNN {sums['ms'] / sums['library_ms']:.3f}), plain "
               f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms (kernel at "
-              f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it)", flush=True)
+              f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it); the ring path's pads of gy "
+              f"{sums['pad_ms']:.3f} ms (besides the kernel time; 0 on the basic path)", flush=True)
     return rows
 
 

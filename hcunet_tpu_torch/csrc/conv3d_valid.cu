@@ -57,17 +57,11 @@
 // halo staged once per block, TMA loads, the 128-byte swizzle, a producer
 // warp and persistent blocks.
 //
-// The basic path, float32, and bfloat16 with any other Cin (the 4-channel
-// first layer): each 256-thread block owns a BM x BN tile and gathers a
-// BM x 32 A slice element by element, and the matching weights, into
-// shared memory per K step.  bfloat16 multiplies through WMMA (mma.sync,
-// 16x16x16, float32 accumulators); float32 runs on the FMA units, so a
-// float32 result stays float32 to the last bit (no TF32).  The N tile
-// follows Cout (16, 32 or 64).
+// The basic path, float32, and bfloat16 with any other Cin, is described
+// where it is defined, below.  It alone takes zero padding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -75,13 +69,6 @@
 #include "hopper_mma.cuh"
 
 namespace {
-
-using namespace nvcuda;
-
-constexpr int BM = 128;        // output voxels per block
-constexpr int BK = 32;         // K slice per step
-constexpr int NT = 256;        // threads per block
-constexpr int A_LD = BK + 8;   // shared row stride of the A tile (elements)
 
 struct ConvArgs {
   const void* x;
@@ -93,20 +80,13 @@ struct ConvArgs {
   int Xo, Yo, Zo, Cout;
   int kx, ky, kz;
   int dil_x, dil_y, dil_z;
+  int pad_x, pad_y, pad_z;  // low zero padding (the high one only sets Xo, Yo, Zo)
   int K;  // kx * ky * kz * Cin
   int relu;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Offset of input voxel (b, xo, yo, zo), channel 0, of output row m < M.
+// Offset of input voxel (b, xo, yo, zo), channel 0, of output row m < M
+// (no padding).
 __device__ __forceinline__ long long input_row_base(const ConvArgs& a, long long m) {
   long long t = m;
   const int zo = (int)(t % a.Zo);
@@ -118,219 +98,8 @@ __device__ __forceinline__ long long input_row_base(const ConvArgs& a, long long
   return (((b * a.X + xo) * a.Y + yo) * (long long)a.Z + zo) * a.Cin;
 }
 
-// Offset of K column k < K (tap (dx, dy, dz), channel ci) from a row's base.
-__device__ __forceinline__ long long tap_offset(const ConvArgs& a, int k) {
-  const int tap = k / a.Cin;
-  const int ci = k - tap * a.Cin;
-  const int dz = tap % a.kz;
-  const int t2 = tap / a.kz;
-  const int dy = t2 % a.ky;
-  const int dx = t2 / a.ky;
-  return (((long long)dx * a.dil_x * a.Y + (long long)dy * a.dil_y) * a.Z +
-          (long long)dz * a.dil_z) * a.Cin + ci;
-}
-
-// Gather the A (im2col) and B (weight) tiles of one K step into shared memory.
-template <typename T, int BN>
-__device__ __forceinline__ void load_tiles(const ConvArgs& a, const T* __restrict__ x,
-                                           const T* __restrict__ w, T* As, T* Bs,
-                                           const long long* row_base, int k0, int n0,
-                                           int tid) {
-  constexpr int B_LD = BN + 8;
-  constexpr int ROWS_PER_PASS = NT / BK;
-  const T zero = from_float<T>(0.f);
-
-  // A: each thread owns one K column of the tile; its tap offset is shared
-  // by all the rows it loads.
-  const int kk = tid % BK;
-  const int k = k0 + kk;
-  const bool kvalid = k < a.K;
-  const long long koff = kvalid ? tap_offset(a, k) : 0;
-  T va[BM / ROWS_PER_PASS];
-#pragma unroll
-  for (int i = 0; i < BM / ROWS_PER_PASS; ++i) {
-    const long long base = row_base[tid / BK + i * ROWS_PER_PASS];
-    va[i] = (kvalid && base >= 0) ? x[base + koff] : zero;
-  }
-#pragma unroll
-  for (int i = 0; i < BM / ROWS_PER_PASS; ++i) {
-    As[(tid / BK + i * ROWS_PER_PASS) * A_LD + kk] = va[i];
-  }
-
-  // B: the weights are already a row-major [K, Cout] matrix.
-#pragma unroll
-  for (int e = tid; e < BK * BN; e += NT) {
-    const int kr = e / BN;
-    const int nc = e % BN;
-    const int kg = k0 + kr;
-    const int ng = n0 + nc;
-    Bs[kr * B_LD + nc] =
-        (kg < a.K && ng < a.Cout) ? w[(long long)kg * a.Cout + ng] : zero;
-  }
-}
-
-template <typename T, int BN>
-__global__ void __launch_bounds__(NT) conv3d_valid_kernel(ConvArgs a) {
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int B_LD = BN + 8;
-  constexpr int C_LD = BN + 4;
-  constexpr int AB_BYTES = (BM * A_LD + BK * B_LD) * (int)sizeof(T);
-  constexpr int C_BYTES = kTensorCores ? BM * C_LD * (int)sizeof(float) : 0;
-  constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ long long row_base[BM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + BM * A_LD;
-
-  const T* __restrict__ x = static_cast<const T*>(a.x);
-  const T* __restrict__ w = static_cast<const T*>(a.w);
-  T* __restrict__ y = static_cast<T*>(a.y);
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // Offset of input voxel (b, xo, yo, zo), channel 0, for each output row;
-  // -1 marks rows past M.
-  for (int r = tid; r < BM; r += NT) {
-    const long long m = m0 + r;
-    row_base[r] = m < a.M ? input_row_base(a, m) : -1;
-  }
-  __syncthreads();
-
-  if constexpr (kTensorCores) {
-    constexpr int WN = BN / 16 >= 2 ? 2 : 1;  // warps along N
-    constexpr int WM = (NT / 32) / WN;        // warps along M
-    constexpr int FM = BM / WM / 16;          // 16x16 fragments per warp, M
-    constexpr int FN = BN / WN / 16;          // 16x16 fragments per warp, N
-    const int warp = tid / 32;
-    const int wm = warp / WN;
-    const int wn = warp % WN;
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int k0 = 0; k0 < a.K; k0 += BK) {
-      load_tiles<T, BN>(a, x, w, As, Bs, row_base, k0, n0, tid);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * FM * 16 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * FN * 16 + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // Epilogue: stage the float32 tile through shared memory so that the
-    // bias, ReLU and the masked store run with coalesced writes.
-    float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * C_LD + wn * FN * 16 + j * 16,
-                                acc[i][j], C_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const long long m = m0 + r;
-      const int n = n0 + c;
-      if (m < a.M && n < a.Cout) {
-        float v = Cs[r * C_LD + c] + a.bias[n];
-        if (a.relu) v = fmaxf(v, 0.f);
-        y[m * a.Cout + n] = from_float<T>(v);
-      }
-    }
-  } else {
-    // float32 on the FMA units: each thread owns TM rows x TN columns,
-    // strided by 16 so that a warp reads shared memory without conflicts.
-    constexpr int TN = BN / 16;
-    constexpr int TM = BM / 16;
-    const int tn = tid % 16;
-    const int tm = tid / 16;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < a.K; k0 += BK) {
-      load_tiles<T, BN>(a, x, w, As, Bs, row_base, k0, n0, tid);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM];
-        float bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = As[(tm + 16 * i) * A_LD + kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * B_LD + tn + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const long long m = m0 + tm + 16 * i;
-      if (m >= a.M) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tn + 16 * j;
-        if (n < a.Cout) {
-          float v = acc[i][j] + a.bias[n];
-          if (a.relu) v = fmaxf(v, 0.f);
-          y[m * a.Cout + n] = from_float<T>(v);
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int BN>
-cudaError_t launch(const ConvArgs& a, cudaStream_t stream) {
-  const long long m_tiles = (a.M + BM - 1) / BM;
-  const dim3 grid((unsigned)m_tiles, (unsigned)((a.Cout + BN - 1) / BN));
-  conv3d_valid_kernel<T, BN><<<grid, NT, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const ConvArgs& a, cudaStream_t stream) {
-  if (a.Cout <= 16) return launch<T, 16>(a, stream);
-  if (a.Cout <= 32) return launch<T, 32>(a, stream);
-  return launch<T, 64>(a, stream);
-}
-
 // ---------------------------------------------------------------------------
-// The ring path: bfloat16, Cin % 8 == 0.
-
-namespace ring {
-
-constexpr int BK = 64;                // K per stage: four wgmma k16 steps
-constexpr int CH = BK / 8;            // 16-byte chunks of a row's K slice
-constexpr int CORE = 128;             // bytes of one 8 x 16-byte core matrix
-// weights of at most this many bytes are copied through L1 (every block
-// re-reads all of them); larger ones only through L2, where they would evict
-// the input rows the blocks share
-constexpr long long B_CA_MAX = 8192;
+// Shared by both paths.
 
 // n / d for n < 2^31 by a multiply-high and a shift, with the multiplier
 // found on the host (d >= 1)
@@ -353,6 +122,630 @@ struct FastDiv {
     return d == 1 ? n : __umulhi(n, mul) >> shift;
   }
 };
+
+// ---------------------------------------------------------------------------
+// The basic path, float32, and bfloat16 with any other Cin (the U-Net's
+// 4-channel first layer, the recurrent family's Cin 9, 10, 20 and 50, the
+// input gradients whose Cin' = Cout is not a multiple of 8).  It also takes
+// per-axis zero padding, low and high, so that a same-padding conv and the
+// input gradient of one read the unpadded tensor: output extent X + lo +
+// hi - d (k - 1), and a tap outside the input reads zeros.
+//
+// What held the first version back was latency, not work: it gathered each
+// 32-deep K step element by element into registers and then shared memory,
+// two barriers apart from the math, dividing four times per element to find
+// its tap.  At RDCNet's shapes (K = 125 x 10, Cout 10) a block walked ~40
+// such steps in series: ~110 us a conv on an H100 against a bound of ~1.4
+// us.  Here:
+//
+// * A ring of 3 (float32) or 4 (bf16) stages in dynamic shared memory,
+//   filled by cp.async while the block works on an earlier stage; one
+//   __syncthreads per stage.  A copy is as wide as alignment allows: 16
+//   bytes (through L2 only) where Cin * sizeof(T) and x allow it, else 8
+//   or 4 (bf16 Cin 4 and 20: 8, Cin 10 and 50: 4; float32 16 or 4), and
+//   for bf16 with an odd Cin (or an input at an odd element) 2 bytes by
+//   plain loads.  The
+//   weights follow Cout's alignment the same way.  A copy past M, past K
+//   or of a tap outside the input is zero-filled (src-size 0), never read.
+// * Skipped taps.  Each row keeps one bit per in-range tap index on each
+//   axis (10 bits an axis); the block ORs them, and a tap whose three bits
+//   are not all set somewhere in the block is left out of the K walk: no
+//   copy and no multiply (at dilation 5 on a 5-deep z, 4 of the 5 z taps).
+//   A tap in range for some rows only is zero-filled for the others.  The
+//   sum runs over the kept taps in K order, so a float32 output voxel sums
+//   the same terms in the same order in any block: zero terms add nothing.
+// * No division in the mainloop.  The kept taps form a list in shared
+//   memory; per stage one lane per K column of the stage advances its
+//   (tap, channel) by adds (the host splits the stage depth as q Cin + r)
+//   and writes the column's input offset, tap bits and weight row into a
+//   small table that the copies of that stage read.  Rows are decomposed
+//   once, with the ring path's FastDiv.
+// * bfloat16: 256 threads, 128 rows, each warp 16 rows and the whole N tile
+//   (8, 16, 32 or 64 following Cout), mma.sync m16n8k16 fed by ldmatrix
+//   (.trans for the [K, N] weights), float32 accumulators, and the bias,
+//   ReLU and bf16 store straight from them.
+// * float32 on the FMA units, float32 to the last bit (no TF32): each
+//   thread holds 8 rows x 4 columns (4 x 4 for Cout <= 16), reading 4 K
+//   columns of a row at once (the A tile keeps K contiguous, as the copies
+//   land it) and 4 weights at once; 256 rows a block for Cout <= 32, 128
+//   for more.  At Cout <= 16 the gather, one copy of every input element
+//   per tap, is what bounds it; staging a block's input box once per
+//   channel slice is not done yet.
+//
+// Bound: RDCNet's convs and the padded input gradients move a few MB and
+// do a few GFLOP, microseconds of the card, so their launches and the
+// block's set-up set their time; the float32 U-Net layers are bound by the
+// FMA units (67 TFLOP/s), and run at about half of that where Cout >= 32.
+
+namespace basic {
+
+constexpr int NT = 256;             // threads per block
+constexpr int ROW_REGS = 8;         // a thread keeps up to this many rows' state in registers
+constexpr int AXIS_BITS = 10;       // tap bits per axis in a row's mask
+constexpr uint32_t NO_TAP = 1u << 31;  // bits no row holds: a K column past the kept taps
+
+// One kept tap, or one K column of a stage: the input offset from a row's
+// base, the tap's axis bits, and the weight row (-1: past the kept taps).
+struct TapEntry {
+  long long xoff;
+  uint32_t bits;
+  int wrow;
+};
+
+// One output row: the input offset of its (possibly padded-away) corner
+// voxel, channel 0, and its in-range tap bits (0 past M).
+struct RowEntry {
+  long long base;
+  uint32_t mask;
+  int pad_;
+};
+
+struct BasicArgs {
+  ConvArgs a;
+  FastDiv zo, yo, xo;  // row m -> (b, xo, yo, zo), used when M < 2^31
+  int q, r;            // the stage depth as q Cin + r
+  int vb;              // bytes per weight copy: 16, 8, 4 or 2
+  int cpb_shift;       // log2 of the weight copies per stage row
+};
+
+// The tile of each type and N width.
+template <typename T, int BN>
+struct Cfg;
+
+template <int BN_>
+struct Cfg<__nv_bfloat16, BN_> {
+  static constexpr int BN = BN_;
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int BM = 128;  // 8 warps of 16 rows
+  static constexpr int BK = 32;
+  static constexpr int STAGES = 4;
+  static constexpr int A_LD = BK + 8;                  // 80-byte rows: ldmatrix without conflicts
+  static constexpr int B_LD = BN == 8 ? 24 : BN + 8;   // 48, 48, 80 or 144-byte rows
+};
+
+template <int BN_>
+struct Cfg<float, BN_> {
+  // 8 rows x 4 columns a thread, 4 x 4 for N = 16, whose blocks are held
+  // to three an SM (at most 85 registers a thread): at N = 16 the time goes
+  // into gathering each input element once per tap, and more blocks in
+  // flight hide more of it.  Stages 16 deep, 32 for N = 64, where the
+  // longer stage halves the barriers per FMA and two blocks still fit.
+  // (Chosen among 8 x 8, 8 x 4 in 512-row blocks, 4- and 8-deep variants
+  // by timing the U-Net's layers on an H100.)
+  static constexpr int BN = BN_;
+  static constexpr int MIN_BLOCKS = BN == 16 ? 3 : 2;
+  static constexpr int TN = 4;              // columns per thread
+  static constexpr int TM = BN == 16 ? 4 : 8;  // rows per thread
+  static constexpr int NTN = BN / TN;       // threads along N
+  static constexpr int NTM = NT / NTN;      // threads along M
+  static constexpr int BM = NTM * TM;       // 256, 256, 128
+  static constexpr int BK = BN == 64 ? 32 : 16;
+  static constexpr int STAGES = 3;
+  static constexpr int A_LD = BK + 4;
+  static constexpr int B_LD = BN + 4;
+};
+
+template <typename T, int BN>
+struct Layout {
+  using C = Cfg<T, BN>;
+  static constexpr int A_ELEMS = C::BM * C::A_LD;
+  static constexpr int STAGE_ELEMS = A_ELEMS + C::BK * C::B_LD;
+  static constexpr int RING_BYTES = C::STAGES * STAGE_ELEMS * (int)sizeof(T);
+  static constexpr int ROWS_BYTES = C::BM * (int)sizeof(RowEntry);
+  static constexpr int TABLE_BYTES = C::STAGES * C::BK * (int)sizeof(TapEntry);
+  // the kept-tap list (taps + 1 entries) comes last
+  static int bytes(int taps) {
+    return RING_BYTES + ROWS_BYTES + TABLE_BYTES + (taps + 1) * (int)sizeof(TapEntry);
+  }
+};
+
+// dst (shared) <- src (global), N = 4, 8 or 16 bytes; ok = false writes
+// zeros and reads nothing
+template <int N>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N),
+               "r"(ok ? N : 0)
+               : "memory");
+}
+
+// a copy of N bytes: 16 through L2 only (the gathered rows are re-read
+// from L2 faster than L1 keeps them: measured on an H100), 8 and 4 through
+// L1, 2 by a plain load and store (the slot it writes is one no thread
+// reads until the next barrier)
+template <int N, typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, bool ok) {
+  if constexpr (N == 2) {
+    const unsigned short v = ok ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+    *reinterpret_cast<unsigned short*>(dst) = v;
+  } else if constexpr (N == 16) {
+    hopper::cp_async16_cg(hopper::smem_addr(dst), src, ok ? 16 : 0);
+  } else {
+    cp_async_ca<N>(hopper::smem_addr(dst), src, ok);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_weights(T* dst, const T* src, bool ok, int vb) {
+  switch (vb) {
+    case 16: copy_chunk<16>(dst, src, ok); break;
+    case 8: copy_chunk<8>(dst, src, ok); break;
+    case 4: copy_chunk<4>(dst, src, ok); break;
+    default:
+      if constexpr (sizeof(T) == 2) copy_chunk<2>(dst, src, ok);
+      break;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d (16 x 8, float32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bit t set where tap t of an axis (kernel k, dilation d) lands inside [0, n)
+// for a row whose tap 0 sits at p
+__device__ __forceinline__ uint32_t axis_bits(int p, int k, int d, int n) {
+  uint32_t bits = 0;
+  for (int t = 0; t < k; ++t, p += d) {
+    if (p >= 0 && p < n) bits |= 1u << t;
+  }
+  return bits;
+}
+
+template <typename T, int BN, int VEC>
+__global__ void __launch_bounds__(NT, Cfg<T, BN>::MIN_BLOCKS)
+    conv3d_valid_kernel(const __grid_constant__ BasicArgs p) {
+  using C = Cfg<T, BN>;
+  using L = Layout<T, BN>;
+  constexpr int BM = C::BM, BK = C::BK, STAGES = C::STAGES;
+  constexpr int E = VEC / (int)sizeof(T);  // elements per input copy
+  constexpr int CPR = BK / E;              // input copies per row and stage
+  constexpr int RSTEP = NT / CPR;          // rows between a thread's copies
+  constexpr int RPT = BM / RSTEP;          // rows per thread
+  constexpr bool kRowRegs = RPT <= ROW_REGS;
+  static_assert(E >= 1 && BK % E == 0 && NT % CPR == 0 && BM % RSTEP == 0, "tile");
+  const ConvArgs& a = p.a;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_or;
+  __shared__ int s_ntaps;
+  T* ring = reinterpret_cast<T*>(smem);
+  RowEntry* rows = reinterpret_cast<RowEntry*>(smem + L::RING_BYTES);
+  TapEntry* table = reinterpret_cast<TapEntry*>(smem + L::RING_BYTES + L::ROWS_BYTES);
+  TapEntry* list = table + STAGES * BK;
+
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ w = static_cast<const T*>(a.w);
+  T* __restrict__ y = static_cast<T*>(a.y);
+  const int tid = threadIdx.x;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  if (tid == 0) s_or = 0;
+  __syncthreads();
+
+  // each row's corner offset and in-range tap bits, once per row
+  uint32_t any = 0;
+  for (int r = tid; r < BM; r += NT) {
+    const long long m = m0 + r;
+    RowEntry e{0, 0u, 0};
+    if (m < a.M) {
+      long long b;
+      int xo, yo, zo;
+      if (a.M < (1LL << 31)) {
+        const uint32_t t0 = (uint32_t)m;
+        const uint32_t t1 = p.zo.div(t0);
+        const uint32_t t2 = p.yo.div(t1);
+        const uint32_t bb = p.xo.div(t2);
+        b = bb;
+        zo = (int)(t0 - t1 * a.Zo);
+        yo = (int)(t1 - t2 * a.Yo);
+        xo = (int)(t2 - bb * a.Xo);
+      } else {
+        long long t = m;
+        zo = (int)(t % a.Zo);
+        t /= a.Zo;
+        yo = (int)(t % a.Yo);
+        t /= a.Yo;
+        xo = (int)(t % a.Xo);
+        b = t / a.Xo;
+      }
+      const int x0 = xo - a.pad_x, y0 = yo - a.pad_y, z0 = zo - a.pad_z;
+      e.mask = axis_bits(x0, a.kx, a.dil_x, a.X) |
+               axis_bits(y0, a.ky, a.dil_y, a.Y) << AXIS_BITS |
+               axis_bits(z0, a.kz, a.dil_z, a.Z) << (2 * AXIS_BITS);
+      e.base = (((b * a.X + x0) * a.Y + y0) * (long long)a.Z + z0) * a.Cin;
+    }
+    rows[r] = e;
+    any |= e.mask;
+  }
+  any = __reduce_or_sync(0xffffffffu, any);
+  if ((tid & 31) == 0 && any != 0) atomicOr(&s_or, any);
+  __syncthreads();
+
+  // the taps some row of the block reaches, in K order (warp 0), and the
+  // sentinel after them
+  const int taps = a.kx * a.ky * a.kz;
+  if (tid < 32) {
+    const uint32_t reach = s_or;
+    int n = 0;
+    for (int t0 = 0; t0 < taps; t0 += 32) {
+      const int t = t0 + tid;
+      TapEntry e{0, 0u, 0};
+      bool on = false;
+      if (t < taps) {
+        const int dz = t % a.kz;
+        const int dy = t / a.kz % a.ky;
+        const int dx = t / a.kz / a.ky;
+        e.bits = 1u << dx | 1u << (AXIS_BITS + dy) | 1u << (2 * AXIS_BITS + dz);
+        e.xoff = (((long long)dx * a.dil_x * a.Y + (long long)dy * a.dil_y) * a.Z +
+                  (long long)dz * a.dil_z) * a.Cin;
+        e.wrow = t * a.Cin;
+        on = (reach & e.bits) == e.bits;
+      }
+      const uint32_t ballot = __ballot_sync(0xffffffffu, on);
+      if (on) list[n + __popc(ballot & ((1u << tid) - 1u))] = e;
+      n += __popc(ballot);
+    }
+    if (tid == 0) {
+      list[n] = TapEntry{0, NO_TAP, -1};
+      s_ntaps = n;
+    }
+  }
+  __syncthreads();
+  const int ntaps = s_ntaps;
+  const int KT = (int)(((long long)ntaps * a.Cin + BK - 1) / BK);
+
+  // The table walk: lane kk < BK of warp 0 follows K column kk of every
+  // stage through the kept taps, by adds, and writes the stage's table slot.
+  int wj = 0, wci = 0;
+  if (tid < BK) {
+    wj = tid / a.Cin;
+    wci = tid - wj * a.Cin;
+  }
+  auto write_table = [&](int slot) {
+    if (tid < BK) {
+      TapEntry e{0, NO_TAP, -1};
+      if (wj < ntaps) {
+        const TapEntry t = list[wj];
+        e.xoff = t.xoff + wci;
+        e.bits = t.bits;
+        e.wrow = t.wrow + wci;
+      }
+      table[slot * BK + tid] = e;
+      wci += p.r;
+      wj += p.q;
+      if (wci >= a.Cin) {
+        wci -= a.Cin;
+        ++wj;
+      }
+    }
+  };
+
+  // A thread copies K columns E c .. E c + E - 1 of rows rrow + RSTEP i.
+  const int c = tid % CPR;
+  const int rrow = tid / CPR;
+  RowEntry rreg[kRowRegs ? RPT : 1];
+  if constexpr (kRowRegs) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) rreg[i] = rows[rrow + RSTEP * i];
+  }
+  const int cpb = 1 << p.cpb_shift;
+  const int eb = p.vb / (int)sizeof(T);
+  const int btot = BK << p.cpb_shift;
+
+  auto load_stage = [&](int slot) {
+    T* As = ring + slot * L::STAGE_ELEMS;
+    T* Bs = As + L::A_ELEMS;
+    const TapEntry te = table[slot * BK + c * E];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rrow + RSTEP * i;
+      RowEntry re;
+      if constexpr (kRowRegs) {
+        re = rreg[i];
+      } else {
+        re = rows[r];
+      }
+      const bool ok = (re.mask & te.bits) == te.bits;
+      copy_chunk<VEC>(As + r * C::A_LD + c * E, ok ? x + (re.base + te.xoff) : x, ok);
+    }
+    for (int q = tid; q < btot; q += NT) {
+      const int kb = q >> p.cpb_shift;
+      const int cc = q & (cpb - 1);
+      const int wrow = table[slot * BK + kb].wrow;
+      const int n = n0 + cc * eb;
+      const bool ok = wrow >= 0 && n < a.Cout;
+      copy_weights(Bs + kb * C::B_LD + cc * eb, ok ? w + ((long long)wrow * a.Cout + n) : w, ok,
+                   p.vb);
+    }
+  };
+
+  // prologue: the tables of stages 0 .. STAGES - 1, the copies of 0 .. STAGES - 2
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) write_table(s);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s);
+    hopper::cp_async_commit();
+  }
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr int NJ = BN / 8;  // n8 tiles
+    const int warp = tid >> 5, lane = tid & 31;
+    float acc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    int slot = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      // stage kt has landed for every thread, and every thread is done with
+      // stage kt - 1, whose ring slot the next copies refill; table slot
+      // `slot` held stage kt's columns, copied long ago
+      hopper::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int prev = slot == 0 ? STAGES - 1 : slot - 1;
+      write_table(slot);
+      if (kt + STAGES - 1 < KT) load_stage(prev);
+      hopper::cp_async_commit();
+
+      const __nv_bfloat16* As = ring + slot * L::STAGE_ELEMS;
+      const __nv_bfloat16* Bs = As + L::A_ELEMS;
+      const uint32_t a_addr =
+          hopper::smem_addr(As + (warp * 16 + (lane & 15)) * C::A_LD + (lane >> 4) * 8);
+      const uint32_t b_addr = hopper::smem_addr(Bs + (lane & 15) * C::B_LD + (lane >> 4) * 8);
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a_addr + ks * 16 * 2);
+        if constexpr (NJ == 1) {
+          uint32_t bf[2];
+          ldmatrix_x2_trans(bf, b_addr + ks * 16 * C::B_LD * 2);
+          mma_16816(acc[0], af, bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NJ; j += 2) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, b_addr + (ks * 16 * C::B_LD + j * 8) * 2);
+            mma_16816(acc[j], af, bf[0], bf[1]);
+            mma_16816(acc[j + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    hopper::cp_async_wait<0>();
+
+    // epilogue from the accumulators: acc[j][2h + e] is row 8h + lane / 4
+    // of the warp's 16, column 8j + 2 (lane % 4) + e
+    const long long row = m0 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= a.Cout) continue;
+      const bool pair = n + 1 < a.Cout;
+      const float b0 = a.bias[n];
+      const float b1 = pair ? a.bias[n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = row + 8 * h;
+        if (m >= a.M) continue;
+        float v0 = acc[j][2 * h] + b0;
+        float v1 = acc[j][2 * h + 1] + b1;
+        if (a.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        __nv_bfloat16* dst = y + m * a.Cout + n;
+        if (pair && (a.Cout & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          dst[0] = __float2bfloat16(v0);
+          if (pair) dst[1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  } else {
+    // thread (tm, tn): rows tm + NTM i, columns 4 tn .. 4 tn + 3
+    constexpr int TM = C::TM, NTM = C::NTM, NTN = C::NTN;
+    const int tn = tid % NTN, tm = tid / NTN;
+    float acc[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+    int slot = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      hopper::cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int prev = slot == 0 ? STAGES - 1 : slot - 1;
+      write_table(slot);
+      if (kt + STAGES - 1 < KT) load_stage(prev);
+      hopper::cp_async_commit();
+
+      const float* As = ring + slot * L::STAGE_ELEMS;
+      const float* Bs = As + L::A_ELEMS;
+#pragma unroll
+      for (int k4 = 0; k4 < BK; k4 += 4) {
+        float4 av[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          av[i] = *reinterpret_cast<const float4*>(As + (tm + NTM * i) * C::A_LD + k4);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 bv = *reinterpret_cast<const float4*>(Bs + (k4 + kk) * C::B_LD + 4 * tn);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float ak = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+            acc[i][0] = fmaf(ak, bv.x, acc[i][0]);
+            acc[i][1] = fmaf(ak, bv.y, acc[i][1]);
+            acc[i][2] = fmaf(ak, bv.z, acc[i][2]);
+            acc[i][3] = fmaf(ak, bv.w, acc[i][3]);
+          }
+        }
+      }
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    hopper::cp_async_wait<0>();
+
+    // epilogue: rows tm + NTM i, columns 4 tn .. 4 tn + 3
+    const int n = n0 + 4 * tn;
+    if (n >= a.Cout) return;
+    float bv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[e] = n + e < a.Cout ? a.bias[n + e] : 0.f;
+    const bool vec = (a.Cout & 3) == 0 && n + 3 < a.Cout;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const long long m = m0 + tm + NTM * i;
+      if (m >= a.M) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = acc[i][e] + bv[e];
+        if (a.relu) v[e] = fmaxf(v[e], 0.f);
+      }
+      float* dst = y + m * a.Cout + n;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (n + e < a.Cout) dst[e] = v[e];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int BN, int VEC>
+cudaError_t launch(const BasicArgs& p, cudaStream_t stream) {
+  using C = Cfg<T, BN>;
+  auto* kernel = conv3d_valid_kernel<T, BN, VEC>;
+  const int smem = Layout<T, BN>::bytes(p.a.kx * p.a.ky * p.a.kz);
+  // above 48 KB of dynamic shared memory a kernel must opt in, per device
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long m_tiles = (p.a.M + C::BM - 1) / C::BM;
+  if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)m_tiles, (unsigned)((p.a.Cout + BN - 1) / BN));
+  kernel<<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the widest copy, of 16, 8, 4 (and for bf16 2) bytes, that divides both
+// the row of `elems` elements and the base address
+template <typename T>
+int copy_bytes(int elems, const void* ptr) {
+  const uintptr_t row = (uintptr_t)elems * sizeof(T);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(ptr);
+  for (int v : {16, 8, 4}) {
+    if (row % v == 0 && addr % v == 0) return v;
+  }
+  return 2;
+}
+
+template <typename T, int BN>
+cudaError_t launch_bn(BasicArgs& p, cudaStream_t stream) {
+  constexpr int BK = Cfg<T, BN>::BK;
+  p.q = BK / p.a.Cin;
+  p.r = BK - p.q * p.a.Cin;
+  p.vb = copy_bytes<T>(p.a.Cout, p.a.w);
+  int shift = 0;
+  while ((1 << shift) * p.vb < BN * (int)sizeof(T)) ++shift;
+  p.cpb_shift = shift;
+  const int vec = copy_bytes<T>(p.a.Cin, p.a.x);
+  if constexpr (std::is_same<T, float>::value) {
+    return vec == 16 ? launch<T, BN, 16>(p, stream) : launch<T, BN, 4>(p, stream);
+  } else {
+    // bf16 on this path has Cin % 8 != 0: 8, 4 or 2 bytes
+    if (vec >= 8) return launch<T, BN, 8>(p, stream);
+    if (vec == 4) return launch<T, BN, 4>(p, stream);
+    return launch<T, BN, 2>(p, stream);
+  }
+}
+
+template <typename T>
+cudaError_t dispatch(const ConvArgs& a, cudaStream_t stream) {
+  if (a.kx > AXIS_BITS || a.ky > AXIS_BITS || a.kz > AXIS_BITS) return cudaErrorInvalidValue;
+  BasicArgs p;
+  p.a = a;
+  p.zo.init(a.Zo);
+  p.yo.init(a.Yo);
+  p.xo.init(a.Xo);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.Cout <= 8) return launch_bn<T, 8>(p, stream);
+    if (a.Cout <= 16) return launch_bn<T, 16>(p, stream);
+    if (a.Cout <= 32) return launch_bn<T, 32>(p, stream);
+    return launch_bn<T, 64>(p, stream);
+  } else {
+    if (a.Cout <= 16) return launch_bn<T, 16>(p, stream);
+    if (a.Cout <= 32) return launch_bn<T, 32>(p, stream);
+    return launch_bn<T, 64>(p, stream);
+  }
+}
+
+}  // namespace basic
+
+// ---------------------------------------------------------------------------
+// The ring path: bfloat16, Cin % 8 == 0.
+
+namespace ring {
+
+constexpr int BK = 64;                // K per stage: four wgmma k16 steps
+constexpr int CH = BK / 8;            // 16-byte chunks of a row's K slice
+constexpr int CORE = 128;             // bytes of one 8 x 16-byte core matrix
+// weights of at most this many bytes are copied through L1 (every block
+// re-reads all of them); larger ones only through L2, where they would evict
+// the input rows the blocks share
+constexpr long long B_CA_MAX = 8192;
 
 // A thread's K chunk: the input offset of K column k = 8 chunk + 64 s
 // (tap (dx, dy, dz), channel ci) for stage s = 0, 1, ..., advanced by adds.
@@ -624,14 +1017,18 @@ extern "C" int conv3d_valid_route(int dtype, int Cin, int Cout) {
   return dtype == 1 && Cin % 8 == 0 ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); a grid too large for one launch returns
-// cudaErrorInvalidValue, and x or w not 16-byte aligned on the ring path
-// cudaErrorMisalignedAddress, without launching.
+// dtype: 0 = float32, 1 = bfloat16.  pad_lo/pad_hi: zero padding before and
+// after each spatial axis (x, y, z), taken by the basic path alone: the
+// output extent is X + lo + hi - dil (k - 1).  Returns cudaGetLastError()
+// after the launch (0 on success); a grid too large for one launch, padding
+// on the ring path, a negative padding or (basic path) a kernel wider than
+// 10 on an axis returns cudaErrorInvalidValue, and x or w not 16-byte
+// aligned on the ring path cudaErrorMisalignedAddress, without launching.
 extern "C" int conv3d_valid(int dtype, const void* x, const void* w, const float* bias,
                             void* y, int B, int X, int Y, int Z, int Cin, int kx, int ky,
-                            int kz, int dil_x, int dil_y, int dil_z, int Cout, int relu,
-                            void* stream) {
+                            int kz, int dil_x, int dil_y, int dil_z, int pad_lo_x,
+                            int pad_hi_x, int pad_lo_y, int pad_hi_y, int pad_lo_z,
+                            int pad_hi_z, int Cout, int relu, void* stream) {
   ConvArgs a;
   a.x = x;
   a.w = w;
@@ -647,23 +1044,31 @@ extern "C" int conv3d_valid(int dtype, const void* x, const void* w, const float
   a.dil_x = dil_x;
   a.dil_y = dil_y;
   a.dil_z = dil_z;
-  a.Xo = X - dil_x * (kx - 1);
-  a.Yo = Y - dil_y * (ky - 1);
-  a.Zo = Z - dil_z * (kz - 1);
+  a.pad_x = pad_lo_x;
+  a.pad_y = pad_lo_y;
+  a.pad_z = pad_lo_z;
+  a.Xo = X + pad_lo_x + pad_hi_x - dil_x * (kx - 1);
+  a.Yo = Y + pad_lo_y + pad_hi_y - dil_y * (ky - 1);
+  a.Zo = Z + pad_lo_z + pad_hi_z - dil_z * (kz - 1);
   a.Cout = Cout;
   a.K = kx * ky * kz * Cin;
   a.relu = relu;
   a.M = (long long)B * a.Xo * a.Yo * a.Zo;
-  if (a.M <= 0 || Cout <= 0 || (a.M + BM - 1) / BM > 0x7fffffffLL) {
+  const bool padded = (pad_lo_x | pad_hi_x | pad_lo_y | pad_hi_y | pad_lo_z | pad_hi_z) != 0;
+  if (a.Xo <= 0 || a.Yo <= 0 || a.Zo <= 0 || a.M <= 0 || Cout <= 0 ||
+      (a.M + 127) / 128 > 0x7fffffffLL ||
+      (pad_lo_x | pad_hi_x | pad_lo_y | pad_hi_y | pad_lo_z | pad_hi_z) < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (conv3d_valid_route(dtype, Cin, Cout) == 1) {
+    if (padded) return (int)cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) {
       return (int)cudaErrorMisalignedAddress;
     }
     return (int)ring::dispatch(a, s);
   }
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s);
+  cudaError_t err =
+      dtype == 1 ? basic::dispatch<__nv_bfloat16>(a, s) : basic::dispatch<float>(a, s);
   return (int)err;
 }

@@ -9,8 +9,9 @@ BN-folding rounding:
 
 * every ``SameConvBNRelu`` is folded once, on the host, in float32;
 * every stride-1 conv is a same-padding conv
-  (:func:`~hcunet_tpu_torch.ops.conv.conv_same`): a zero pad and kernel K1
-  (``conv``, :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid` by default),
+  (:func:`~hcunet_tpu_torch.ops.conv.conv_same`): kernel K1 given the
+  zero padding as ``padding=`` (``conv``,
+  :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid` by default),
   with the bias and, where the forward applies one, the ReLU in K1's
   epilogue: 20 launches per RecursiveUNet timestep, 7 per RDCNet iteration
   and one for its output conv;
@@ -215,7 +216,8 @@ def compile_recurrent_apply(
     Returns ``apply(image[B, X, Y, Z, C]) -> s_T`` (float32) on ``device``
     (CUDA unless given; with a ``mesh``, its first device).  ``conv`` runs
     the valid convs with the signature of
-    :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`; K1 by default.  An
+    :func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`, ``padding=``
+    included; K1 by default.  An
     ``RDCNet`` goes to :func:`compile_rdcnet_apply` (``halo_x`` in its
     half-resolution columns, default 12).  Falls back to the model's plain
     forward where the JAX function does: a pool or upsample stride other

@@ -12,13 +12,16 @@ with ``Cin % 8 == 0``, and a basic one for the rest.  :func:`conv3d_valid`
 launches it for a CUDA tensor and raises if it cannot; only a tensor on the
 CPU takes :func:`conv3d_valid_plain`, the same function in plain PyTorch.
 
-A conv that needs a gradient runs through :class:`Conv3dValidFunction`:
-K1 in the forward, K1 again for the input gradient
-(:func:`conv3d_valid_input_grad`, a valid conv of the padded output
-gradient with the flipped kernel), and plain PyTorch (cuDNN's wgrad on
-CUDA) for the weight gradient, which the JAX package also left to XLA.
-The recurrent models' same-padding convs (:func:`conv_same`) are valid
-convs of a zero-padded input, so at stride 1 they run on K1 too.
+K1 takes per-axis zero padding (``padding=``), which its basic path does
+inside the kernel, reading the unpadded input; the ring path is given a
+padded copy (one ``F.pad``).  A conv that needs a gradient runs through
+:class:`Conv3dValidFunction`: K1 in the forward, K1 again for the input
+gradient (:func:`conv3d_valid_input_grad`, a conv of the output gradient
+padded by ``d (k - 1) - p`` with the flipped kernel), and plain PyTorch
+(cuDNN's wgrad on CUDA) for the weight gradient, which the JAX package
+also left to XLA.  The recurrent models' same-padding convs
+(:func:`conv_same`) are padded valid convs, so at stride 1 they run on K1
+too.
 Transpose convs, strided convs and pooling are plain PyTorch, as the JAX
 package left them to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's
 semantics, and :func:`update_running_stats` flax's running update.
@@ -46,7 +49,7 @@ CONV3D_ROUTES = ("basic", "ring")
 CONV3D_VALID = CudaKernel(
     "conv3d_valid.cu",
     "conv3d_valid",
-    [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    [_I, _P, _P, _P, _P] + [_I] * 19 + [_P],
     routes=CONV3D_ROUTES,
 )
 
@@ -55,6 +58,10 @@ CONV3D_VALID = CudaKernel(
 CONV3D_VALID_INPUT_GRAD = LaunchCount(CONV3D_ROUTES)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the basic path's kernel size limit on each axis: a row keeps one bit per
+# tap index and axis in 10 bits (AXIS_BITS in csrc/conv3d_valid.cu)
+K1_BASIC_MAX_TAPS = 10
 
 
 def conv3d_valid_route(dtype: torch.dtype, cin: int, cout: int) -> str:
@@ -68,6 +75,44 @@ def conv3d_valid_route(dtype: torch.dtype, cin: int, cout: int) -> str:
 
 def _tuple(v, n: int) -> Tuple[int, ...]:
     return (int(v),) * n if isinstance(v, int) else tuple(int(a) for a in v)
+
+
+# padding as ((lo, hi), (lo, hi), (lo, hi)) along x, y, z
+Padding = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]
+
+
+def _padding3(padding) -> Padding:
+    """``padding`` as per-axis ``(low, high)`` pairs: an int pads every side
+    alike, three ints pad both sides of each axis, three pairs are kept."""
+    if isinstance(padding, int):
+        return ((int(padding),) * 2,) * 3
+    pads = tuple(padding)
+    if len(pads) != 3:
+        raise ValueError(f"padding: an int, 3 ints or 3 (low, high) pairs, got {padding}")
+    return tuple(
+        (int(p),) * 2 if isinstance(p, int) else (int(p[0]), int(p[1])) for p in pads
+    )
+
+
+def _check_padding(pads: Padding, w_shape, dil) -> None:
+    """K1 takes a padding of 0 to ``d (k - 1)`` on each side of each axis:
+    what a same-padding conv needs, and what leaves its input gradient a
+    conv of the output gradient padded by ``d (k - 1) - p``."""
+    for (lo, hi), k, d in zip(pads, w_shape[:3], dil):
+        if not (0 <= lo <= d * (k - 1) and 0 <= hi <= d * (k - 1)):
+            raise ValueError(
+                f"conv3d_valid: padding {pads} outside 0..d(k-1) for kernel "
+                f"{tuple(w_shape[:3])}, dilation {tuple(dil)}"
+            )
+
+
+def _pad(x: torch.Tensor, pads: Padding) -> torch.Tensor:
+    """``x`` ``[B, X, Y, Z, C]`` zero-padded (one allocation and copy), or
+    ``x`` itself where the padding is 0."""
+    if not any(lo or hi for lo, hi in pads):
+        return x
+    (xl, xh), (yl, yh), (zl, zh) = pads
+    return F.pad(x, (0, 0, zl, zh, yl, yh, xl, xh)).contiguous()
 
 
 def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -84,12 +129,14 @@ def conv3d_valid_plain(
     bias: Optional[torch.Tensor] = None,
     relu: bool = False,
     dilation: Sequence[int] | int = 1,
+    padding=0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K1: ``F.conv3d`` in float32, plus the bias,
-    optional ReLU, cast back to ``x``'s dtype.  Same arguments and layouts as
-    :func:`conv3d_valid`."""
+    """Plain PyTorch version of K1: ``F.pad`` and ``F.conv3d`` in float32,
+    plus the bias, optional ReLU, cast back to ``x``'s dtype.  Same
+    arguments and layouts as :func:`conv3d_valid`."""
     wt = w.float().permute(4, 3, 0, 1, 2)  # [Cout, Cin, kx, ky, kz]
-    out = F.conv3d(_to_channels_first(x.float()), wt, dilation=_tuple(dilation, 3))
+    xp = _pad(x.float(), _padding3(padding))
+    out = F.conv3d(_to_channels_first(xp), wt, dilation=_tuple(dilation, 3))
     out = _to_channels_last(out)
     if bias is not None:
         out = out + bias.float()
@@ -104,26 +151,36 @@ def conv3d_valid(
     bias: Optional[torch.Tensor] = None,
     relu: bool = False,
     dilation: Sequence[int] | int = 1,
+    padding=0,
 ) -> torch.Tensor:
-    """Valid 3D conv, channels-last, with float32 bias and optional ReLU.
+    """Valid 3D conv of ``x`` zero-padded by ``padding``, channels-last,
+    with float32 bias and optional ReLU.
 
     ``x`` ``[B, X, Y, Z, Cin]`` and ``w`` ``[kx, ky, kz, Cin, Cout]`` in
-    float32 or bfloat16 (the same for both); ``bias`` ``[Cout]`` float32.
-    Returns ``[B, Xo, Yo, Zo, Cout]`` in ``x``'s dtype, summed in float32.
+    float32 or bfloat16 (the same for both); ``bias`` ``[Cout]`` float32;
+    ``padding`` an int, three ints (both sides of x, y, z) or three ``(low,
+    high)`` pairs, each from 0 to ``dilation * (k - 1)`` (else it raises).
+    Returns ``[B, X + lo + hi - d (k - 1), ..., Cout]`` in ``x``'s dtype,
+    summed in float32.
 
     A CUDA tensor launches K1 (``csrc/conv3d_valid.cu``) on the path
     :func:`conv3d_valid_route` names; a CPU tensor runs
     :func:`conv3d_valid_plain`.  Any other device, or an input K1 does not
-    take, raises.  The ring path copies 16 bytes at a time, so there an
-    ``x`` or ``w`` that does not start on a 16-byte boundary (a view at an
-    odd element offset) is first copied once into a fresh, aligned
-    allocation; the basic path takes any contiguous input as it is.
+    take, raises; so does, on the basic path, a kernel of more than
+    :data:`K1_BASIC_MAX_TAPS` taps on an axis.  The basic path pads inside
+    the kernel and takes any contiguous input as it is; the ring path
+    copies 16 bytes at a time and takes no padding, so there ``x`` is first
+    zero-padded (one ``F.pad``) and an ``x`` or ``w`` that does not start
+    on a 16-byte boundary (a view at an odd element offset) is copied once
+    into a fresh, aligned allocation.
 
     With grad mode on and an input that requires grad, the call runs through
     :class:`Conv3dValidFunction`, which takes no ``bias`` and no ``relu``
     (what :func:`conv_valid` passes); with either it raises, so that no
     output ever comes back without its gradient.
     """
+    dil, pads = _tuple(dilation, 3), _padding3(padding)
+    _check_padding(pads, w.shape, dil)
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, w, bias)
     ):
@@ -132,21 +189,20 @@ def conv3d_valid(
                 "conv3d_valid: the gradient path takes no bias and no relu; "
                 "run the serving path under torch.no_grad()"
             )
-        return Conv3dValidFunction.apply(x, w, _tuple(dilation, 3))
+        return Conv3dValidFunction.apply(x, w, dil, pads)
     if x.device.type == "cpu":
-        return conv3d_valid_plain(x, w, bias, relu, dilation)
-    y, route = _k1_launch(x, w, bias, relu, _tuple(dilation, 3))
+        return conv3d_valid_plain(x, w, bias, relu, dil, pads)
+    y, route = _k1_launch(x, w, bias, relu, dil, pads)
     if route is not None:
         CONV3D_VALID.add(route)
     return y
 
 
-def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
+def _k1_launch(x, w, bias, relu, dil, pads: Padding) -> Tuple[torch.Tensor, Optional[str]]:
     """Check K1's inputs and launch it; returns the output and the path
-    (None when the batch is empty and nothing launched).  The callers count
-    the launch."""
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_valid: no kernel for device {x.device}")
+    (None when the batch is empty and nothing launched).  The basic path
+    takes the padding, the ring path a padded copy of ``x``.  The callers
+    count the launch."""
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
         raise TypeError(
             f"conv3d_valid takes float32 or bfloat16 x and w of one dtype, "
@@ -157,9 +213,20 @@ def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
             f"conv3d_valid: x [B,X,Y,Z,Cin] and w [kx,ky,kz,Cin,Cout] "
             f"expected, got {tuple(x.shape)} and {tuple(w.shape)}"
         )
-    B, X, Y, Z, cin = x.shape
-    kx, ky, kz, _, cout = w.shape
-    out_sp = [s - d * (k - 1) for s, d, k in zip((X, Y, Z), dil, (kx, ky, kz))]
+    cin, (kx, ky, kz, _, cout) = x.shape[4], w.shape
+    route = conv3d_valid_route(x.dtype, cin, cout)
+    if route == "basic" and max(kx, ky, kz) > K1_BASIC_MAX_TAPS:
+        raise ValueError(
+            f"conv3d_valid: the basic path takes at most {K1_BASIC_MAX_TAPS} taps "
+            f"an axis, got the kernel {(kx, ky, kz)}"
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_valid: no kernel for device {x.device}")
+    if route == "ring":
+        x, pads = _pad(x, pads), ((0, 0),) * 3
+    B, X, Y, Z, _ = x.shape
+    out_sp = [s + lo + hi - d * (k - 1)
+              for s, (lo, hi), d, k in zip((X, Y, Z), pads, dil, (kx, ky, kz))]
     if min(out_sp) <= 0:
         raise ValueError(f"conv3d_valid: input {tuple(x.shape)} smaller than kernel")
     if bias is None:
@@ -174,7 +241,6 @@ def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
     y = torch.empty((B, *out_sp, cout), device=x.device, dtype=x.dtype)
     if B == 0:
         return y, None
-    route = conv3d_valid_route(x.dtype, cin, cout)
     if route == "ring":
         x, w = aligned16(x), aligned16(w)
     fn = CONV3D_VALID.function()
@@ -183,7 +249,8 @@ def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
     with torch.cuda.device(x.device):
         rc = fn(
             dt, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), B, X, Y, Z, cin, kx, ky, kz, *dil, cout, int(relu),
+            y.data_ptr(), B, X, Y, Z, cin, kx, ky, kz, *dil,
+            *(p for pair in pads for p in pair), cout, int(relu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
@@ -191,90 +258,99 @@ def _k1_launch(x, w, bias, relu, dil) -> Tuple[torch.Tensor, Optional[str]]:
     return y, route
 
 
-def _input_grad_operands(gy: torch.Tensor, w: torch.Tensor, dil) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The valid conv whose output is the input gradient: ``gy`` zero-padded
-    by ``dilation * (k - 1)`` on both sides of each spatial axis (one
-    allocation), and the kernel flipped in space with Cin and Cout swapped,
-    ``[kx, ky, kz, Cout, Cin]``."""
-    pads = [d * (k - 1) for d, k in zip(dil, w.shape[:3])]
-    B, X, Y, Z, cout = gy.shape
-    padded = gy.new_zeros((B, *(s + 2 * p for s, p in zip((X, Y, Z), pads)), cout))
-    px, py, pz = pads
-    padded[:, px : px + X, py : py + Y, pz : pz + Z] = gy
-    return padded, w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+def _input_grad_conv(w: torch.Tensor, dil, pads: Padding) -> Tuple[torch.Tensor, Padding]:
+    """The conv whose output is the input gradient of ``conv3d_valid(x, w,
+    padding=pads)``: the kernel flipped in space with Cin and Cout swapped,
+    ``[kx, ky, kz, Cout, Cin]``, over the output gradient zero-padded by
+    ``d (k - 1) - p`` on each side, so that it has ``x``'s extent."""
+    _check_padding(pads, w.shape, dil)
+    grad_pads = tuple((d * (k - 1) - lo, d * (k - 1) - hi)
+                      for (lo, hi), d, k in zip(pads, dil, w.shape[:3]))
+    return w.flip((0, 1, 2)).transpose(3, 4).contiguous(), grad_pads
 
 
 def conv3d_valid_input_grad_plain(
-    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1
+    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1, padding=0
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`conv3d_valid_input_grad`: the same
     padded, flipped conv through :func:`conv3d_valid_plain`."""
-    padded, wt = _input_grad_operands(gy, w, _tuple(dilation, 3))
-    return conv3d_valid_plain(padded, wt, dilation=dilation)
+    dil = _tuple(dilation, 3)
+    wt, grad_pads = _input_grad_conv(w, dil, _padding3(padding))
+    return conv3d_valid_plain(gy, wt, dilation=dil, padding=grad_pads)
 
 
 def conv3d_valid_input_grad(
-    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1
+    gy: torch.Tensor, w: torch.Tensor, dilation: Sequence[int] | int = 1, padding=0
 ) -> torch.Tensor:
-    """The gradient of ``conv3d_valid(x, w)`` with respect to ``x``, for the
-    output gradient ``gy`` ``[B, Xo, Yo, Zo, Cout]``: ``[B, X, Y, Z, Cin]``
-    in ``gy``'s dtype, summed in float32.
+    """The gradient of ``conv3d_valid(x, w, padding=padding)`` with respect
+    to ``x``, for the output gradient ``gy`` ``[B, Xo, Yo, Zo, Cout]``:
+    ``[B, X, Y, Z, Cin]`` in ``gy``'s dtype, summed in float32.
 
-    ``dx[i] = sum_k gy[i - d k] w[k]`` is itself a valid conv: of ``gy``
-    zero-padded by ``d (k - 1)`` on both sides, with the flipped kernel and
-    Cin/Cout swapped.  A CUDA tensor launches K1 for it (counted in
+    ``dx[i] = sum_k gy[i + p - d k] w[k]`` is itself a conv: of ``gy``
+    zero-padded by ``d (k - 1) - p`` on each side, with the flipped kernel
+    and Cin/Cout swapped.  A CUDA tensor launches K1 for it (counted in
     ``CONV3D_VALID_INPUT_GRAD``, on the path ``conv3d_valid_route`` names
-    for Cin' = Cout); a CPU tensor runs the plain version."""
+    for Cin' = Cout): the basic path pads inside the kernel, so no padded
+    ``gy`` is allocated; the ring path is given one.  A CPU tensor runs the
+    plain version."""
     dil = _tuple(dilation, 3)
     if gy.device.type == "cpu":
-        return conv3d_valid_input_grad_plain(gy, w, dil)
+        return conv3d_valid_input_grad_plain(gy, w, dil, padding)
     if w.dtype != gy.dtype:
         raise TypeError(f"conv3d_valid_input_grad: gy {gy.dtype}, w {w.dtype}")
-    padded, wt = _input_grad_operands(gy, w, dil)
-    dx, route = _k1_launch(padded, wt, None, False, dil)
+    wt, grad_pads = _input_grad_conv(w, dil, _padding3(padding))
+    dx, route = _k1_launch(gy.contiguous(), wt, None, False, dil, grad_pads)
     if route is not None:
         CONV3D_VALID_INPUT_GRAD.add(route)
     return dx
 
 
 def conv3d_valid_weight_grad(
-    x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int], dilation: Sequence[int] | int = 1
+    x: torch.Tensor, gy: torch.Tensor, w_shape: Sequence[int],
+    dilation: Sequence[int] | int = 1, padding=0,
 ) -> torch.Tensor:
-    """The gradient of ``conv3d_valid(x, w)`` with respect to ``w``
-    ``[kx, ky, kz, Cin, Cout]``, in ``x``'s dtype: plain PyTorch
+    """The gradient of ``conv3d_valid(x, w, padding=padding)`` with respect
+    to ``w`` ``[kx, ky, kz, Cin, Cout]``, in ``x``'s dtype: plain PyTorch
     (``torch.nn.grad.conv3d_weight``, cuDNN's wgrad on CUDA, in ``x``'s
-    dtype; float32 on the CPU).  No TPU kernel computes it: the JAX package
-    leaves it to XLA."""
+    dtype; float32 on the CPU), given a symmetric padding as its own and an
+    asymmetric one as a padded ``x``.  No TPU kernel computes it: the JAX
+    package leaves it to XLA."""
     kx, ky, kz, cin, cout = w_shape
     work = torch.float32 if x.device.type == "cpu" else x.dtype
+    pads = _padding3(padding)
+    if all(lo == hi for lo, hi in pads):
+        sym = tuple(lo for lo, _ in pads)
+    else:
+        x, sym = _pad(x, pads), (0, 0, 0)
     dw = torch.nn.grad.conv3d_weight(
         _to_channels_first(x.to(work)), (cout, cin, kx, ky, kz),
-        _to_channels_first(gy.to(work)), dilation=_tuple(dilation, 3),
+        _to_channels_first(gy.to(work)), dilation=_tuple(dilation, 3), padding=sym,
     )
     return dw.permute(2, 3, 4, 1, 0).to(x.dtype)
 
 
 class Conv3dValidFunction(torch.autograd.Function):
-    """``conv3d_valid(x, w)`` (no bias, no ReLU) with its gradient: the
-    forward and the input gradient through K1 on CUDA, the weight gradient
-    through :func:`conv3d_valid_weight_grad`.  The input gradient is skipped
-    where ``x`` needs none (a network's first layer)."""
+    """``conv3d_valid(x, w, padding=padding)`` (no bias, no ReLU) with its
+    gradient: the forward and the input gradient through K1 on CUDA, the
+    weight gradient through :func:`conv3d_valid_weight_grad`.  The input
+    gradient is skipped where ``x`` needs none (a network's first layer)."""
 
     @staticmethod
-    def forward(ctx, x, w, dilation):
+    def forward(ctx, x, w, dilation, padding=0):
         ctx.dilation = dilation
+        ctx.padding = padding
         ctx.save_for_backward(x, w)
-        return conv3d_valid(x, w, None, False, dilation)
+        return conv3d_valid(x, w, None, False, dilation, padding)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = conv3d_valid_input_grad(gy, w, ctx.dilation)
+            gx = conv3d_valid_input_grad(gy, w, ctx.dilation, ctx.padding)
         if ctx.needs_input_grad[1]:
-            gw = conv3d_valid_weight_grad(x, gy, w.shape, ctx.dilation)
-        return gx, gw, None
+            gw = conv3d_valid_weight_grad(x, gy, w.shape, ctx.dilation, ctx.padding)
+        return gx, gw, None, None
 
 
 def block_diagonal_weights(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -365,11 +441,12 @@ def conv_same(
 
     ``x`` ``[B, X, Y, Z, Cin]``, ``w`` ``[kx, ky, kz, Cin, Cout]``, ``b``
     ``[Cout]``.  At stride 1 the conv is a valid conv of ``x`` zero-padded
-    by ``padding`` on both sides of each spatial axis (``F.pad``: one
-    allocation and copy), run by ``conv`` (:func:`conv3d_valid`: K1 on
-    CUDA, its plain version on the CPU) with ``b`` in float32 and
-    ``relu`` in its epilogue; where a gradient is needed, ``b`` and the
-    ReLU follow it instead (K1's gradient path takes neither).  A larger
+    by ``padding`` on both sides of each spatial axis, run by ``conv``
+    (:func:`conv3d_valid`: K1 on CUDA, its plain version on the CPU) with
+    ``b`` in float32 and ``relu`` in its epilogue; where a gradient is
+    needed, ``b`` and the ReLU follow it instead (K1's gradient path takes
+    neither).  ``conv`` takes the padding as ``padding=`` (K1's basic path
+    pads inside the kernel, its ring path pads a copy).  A larger
     stride (RDCNet's input conv) is plain ``F.conv3d``, in ``x``'s dtype on
     CUDA and float32 on the CPU, as the JAX package left that conv to XLA.
     Returns ``accum_dtype``.
@@ -383,15 +460,13 @@ def conv_same(
         )
         out = _to_channels_last(out).to(accum_dtype)
     else:
-        px, py, pz = padding
-        xp = F.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous()
-        w = w.to(x.dtype).contiguous()
+        x, w = x.contiguous(), w.to(x.dtype).contiguous()
         if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b)
         )):
             bias = None if b is None else b.float().contiguous()
-            return conv(xp, w, bias, relu, dilation).to(accum_dtype)
-        out = conv(xp, w, None, False, dilation).to(accum_dtype)
+            return conv(x, w, bias, relu, dilation, padding=padding).to(accum_dtype)
+        out = conv(x, w, None, False, dilation, padding=padding).to(accum_dtype)
     if b is not None:
         out = out + b.to(out.dtype)
     return torch.relu(out) if relu else out

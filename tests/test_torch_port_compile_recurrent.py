@@ -103,9 +103,9 @@ def test_fallbacks_to_the_plain_forward():
     other = RecursiveUNet(cfg).eval()
     calls = []
 
-    def conv(x, w, b, relu, dilation=1):
+    def conv(x, w, b, relu, dilation=1, padding=0):
         calls.append(1)
-        return conv3d_valid_plain(x, w, b, relu, dilation)
+        return conv3d_valid_plain(x, w, b, relu, dilation, padding)
 
     apply = compile_recurrent_apply(other, dtype=torch.float32, device="cpu", conv=conv)
     x = torch.from_numpy(_inputs((16, 16, 8)))
@@ -115,9 +115,9 @@ def test_fallbacks_to_the_plain_forward():
 
 
 def _recording_conv(records):
-    def conv(x, w, b, relu, dilation=1):
+    def conv(x, w, b, relu, dilation=1, padding=0):
         records.append((tuple(x.shape), tuple(w.shape), relu, dilation))
-        return conv3d_valid_plain(x, w, b, relu, dilation)
+        return conv3d_valid_plain(x, w, b, relu, dilation, padding)
     return conv
 
 

@@ -451,6 +451,152 @@ def test_conv_gradient_goes_through_k1(cuda, groups):
             conv3d_valid(x0, wd, **kw)
 
 
+def _k1_gap(got, want) -> tuple:
+    """K1's gates: float32 1e-5, bf16 2^-7 of max(1, max |plain|)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = 1e-5 * scale if want.dtype == torch.float32 else 2.0**-7 * scale
+    return float((got.float() - want.float()).abs().max()), tol
+
+
+def _basic_inputs(xs, ws, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to("cuda", dtype)
+    w = torch.from_numpy(rng.standard_normal(ws, np.float32) / np.sqrt(np.prod(ws[:4])))
+    b = torch.from_numpy(rng.standard_normal(ws[-1:], np.float32)).to("cuda")
+    return x, w.to("cuda", dtype), b
+
+
+def _check_basic(x, w, b, dilation, padding, relu=True):
+    """One launch of K1's basic path with ``padding``, against the plain
+    version (F.pad, then the plain conv)."""
+    assert conv3d_valid_route(x.dtype, x.shape[-1], w.shape[-1]) == "basic"
+    before = dict(CONV3D_VALID.route_launches)
+    got = conv3d_valid(x, w, b, relu, dilation, padding)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID.route_launches == {**before, "basic": before["basic"] + 1}
+    want = conv3d_valid_plain(x, w, b, relu, dilation, padding)
+    assert got.shape == want.shape and got.dtype == x.dtype
+    err, tol = _k1_gap(got, want)
+    assert err <= tol, (err, tol)
+
+
+# The redesigned basic path at the production U-Net's 15 layers (kernel,
+# Cin, Cout) in float32, where the command line's analyze serves it
+UNET_LAYERS = [((3, 3, 2), 4, 16)] + TRAIN_LAYERS
+
+
+@pytest.mark.parametrize("layer", range(len(UNET_LAYERS)))
+def test_conv3d_valid_basic_float32_unet_layers(cuda, layer):
+    k, cin, cout = UNET_LAYERS[layer]
+    x, w, b = _basic_inputs((2, 13, 11, 6, cin), (*k, cin, cout), torch.float32, 500 + layer)
+    _check_basic(x, w, b, 1, 0)
+
+
+# In-kernel padding: 5^3 kernels at dilation 1-5 with padding 2d (RDCNet's
+# same-padding convs) over Cin 4 (8-byte bf16 copies), 10 and 50 (4-byte),
+# 20 (8-byte) and Cout 1, 10 and 16 (N tiles of 8 and 16); M = 360 rows (a
+# tail in every block size) and K = 125 Cin (a tail in every stage depth)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dilation", range(1, 6))
+@pytest.mark.parametrize("cout", [1, 10, 16])
+@pytest.mark.parametrize("cin", [4, 10, 20, 50])
+def test_conv3d_valid_basic_padded_matches_plain(cuda, cin, cout, dilation, dtype):
+    x, w, b = _basic_inputs((1, 9, 8, 5, cin), (5, 5, 5, cin, cout), dtype,
+                            cin * 100 + cout * 10 + dilation)
+    _check_basic(x, w, b, dilation, 2 * dilation)
+
+
+# asymmetric padding, per-axis dilation, an odd bf16 Cin (2-byte copies),
+# Cout 1, a batch of 2
+ASYM_CASES = [
+    ((2, 7, 9, 6, 10), (3, 3, 3, 10, 16), (1, 2, 1), ((0, 2), (1, 0), (2, 2))),
+    ((1, 11, 6, 5, 4), (5, 3, 2, 4, 10), (2, 1, 3), ((8, 0), (0, 2), (1, 3))),
+    ((1, 6, 6, 4, 5), (3, 3, 3, 5, 1), 1, ((1, 0), (0, 1), (2, 0))),
+    ((2, 8, 7, 5, 9), (3, 3, 3, 9, 16), 1, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(ASYM_CASES)))
+def test_conv3d_valid_basic_asymmetric_padding_matches_plain(cuda, case, dtype):
+    xs, ws, dil, pad = ASYM_CASES[case]
+    x, w, b = _basic_inputs(xs, ws, dtype, 600 + case)
+    _check_basic(x, w, b, dil, pad)
+
+
+@pytest.mark.parametrize("dtype,cin", [(torch.float32, 16), (torch.bfloat16, 10)],
+                         ids=["f32", "bf16"])
+def test_conv3d_valid_basic_takes_input_at_odd_element(cuda, dtype, cin):
+    """The basic path's copies follow x's and w's alignment: a view at an
+    odd element offset takes 4-byte copies (float32) or 2-byte ones (bf16)
+    and is read in place, with the plain version's result."""
+    x, w, b = _basic_inputs((1, 7, 6, 5, cin), (3, 3, 3, cin, 16), dtype, 700)
+    xm = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape)
+    xm.copy_(x)
+    wm = torch.empty(w.numel() + 1, device=cuda, dtype=dtype)[1:].view(w.shape)
+    wm.copy_(w)
+    assert xm.data_ptr() % 8 != 0 and wm.data_ptr() % 8 != 0
+    _check_basic(xm, w, b, 1, 1)
+    _check_basic(xm, wm, b, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(RECURRENT_GRADS)),
+                         ids=[f"k{k}d{d}c{ci}-{co}" for k, d, ci, co in RECURRENT_GRADS])
+def test_conv3d_valid_input_grad_padded_recurrent_shapes_match_plain(cuda, case, dtype):
+    """K1 as the input gradient of a same-padding conv (padding d (k - 1) /
+    2): a conv of the output gradient padded by d (k - 1) - p, which has
+    the input's own extent, against the plain version, at K1's gates."""
+    k, d, cin, cout = RECURRENT_GRADS[case]
+    p = d * (k - 1) // 2
+    gy, w, _b = _basic_inputs((1, 12, 11, 6, cout), (k, k, k, cin, cout), dtype, 800 + case)
+    route = conv3d_valid_route(dtype, cout, cin)
+    before = dict(CONV3D_VALID_INPUT_GRAD.route_launches)
+    got = conv3d_valid_input_grad(gy, w, d, padding=p)
+    torch.cuda.synchronize()
+    assert CONV3D_VALID_INPUT_GRAD.route_launches == {**before, route: before[route] + 1}
+    want = conv3d_valid_input_grad_plain(gy, w, d, padding=p)
+    assert got.shape == want.shape == (1, 12, 11, 6, cin)
+    err, tol = _k1_gap(got, want)
+    assert err <= tol, (err, tol)
+
+
+def test_conv_same_basic_route_copies_no_padding(cuda, monkeypatch):
+    """On the basic path a same-padding conv and its input gradient run on
+    the unpadded tensors: no ``F.pad`` in the forward or the backward (the
+    ring path still pads a copy for each), and the gradients match plain
+    autograd through the plain version."""
+    from hcunet_tpu_torch.ops.conv import conv_same
+
+    pads = []
+    pad = torch.nn.functional.pad
+
+    def counting_pad(*args, **kwargs):
+        pads.append(tuple(args[0].shape))
+        return pad(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "pad", counting_pad)
+    for dtype, cin, cout, k, d, want_pads in ((torch.float32, 10, 10, 5, 3, 0),
+                                              (torch.bfloat16, 10, 10, 5, 3, 0),
+                                              (torch.bfloat16, 16, 16, 3, 1, 2)):
+        x0, w0, b0 = _basic_inputs((1, 12, 11, 5, cin), (k, k, k, cin, cout), dtype, cin + d)
+        grads = []
+        for conv in (conv3d_valid, conv3d_valid_plain):
+            x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+            del pads[:]
+            fwd, grad = CONV3D_VALID.launches, CONV3D_VALID_INPUT_GRAD.launches
+            out = conv_same(x, w, b, padding=d * (k - 1) // 2, dilation=d, relu=True,
+                            accum_dtype=torch.float32, conv=conv)
+            out.sum().backward()
+            torch.cuda.synchronize()
+            if conv is conv3d_valid:
+                assert (CONV3D_VALID.launches - fwd, CONV3D_VALID_INPUT_GRAD.launches - grad) == (1, 1)
+                assert len(pads) == want_pads, (dtype, cin, pads)
+            grads.append(x.grad.float())
+        err, tol = _k1_gap(*grads)
+        assert err <= tol, (dtype, err, tol)
+
+
 def test_conv3d_valid_route_is_the_c_entry_points(cuda):
     """The C entry point decides the path; the Python rule, which the
     wrapper counts launches by, names the same one."""
@@ -461,6 +607,22 @@ def test_conv3d_valid_route_is_the_c_entry_points(cuda):
         for cin in range(1, 137):
             for cout in (1, 16, 24, 64, 80, 128):
                 assert CONV3D_ROUTES[route(code, cin, cout)] == conv3d_valid_route(dtype, cin, cout)
+
+
+def test_conv3d_valid_basic_path_refuses_wide_kernels(cuda):
+    """A kernel of more than 10 taps on an axis raises on the basic path
+    with the reason, before any launch; 10 taps still run."""
+    x = torch.zeros((1, 12, 12, 4, 3), device=cuda)
+    before = CONV3D_VALID.launches
+    with pytest.raises(ValueError, match="at most 10 taps"):
+        conv3d_valid(x, torch.zeros((11, 3, 3, 3, 2), device=cuda))
+    assert CONV3D_VALID.launches == before
+    w = torch.randn((10, 3, 3, 3, 2), generator=torch.Generator().manual_seed(3)).to(cuda)
+    x = torch.randn((1, 12, 12, 4, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    got = conv3d_valid(x, w, padding=((4, 5), (1, 1), (0, 0)))
+    torch.cuda.synchronize()
+    err, tol = _k1_gap(got, conv3d_valid_plain(x, w, padding=((4, 5), (1, 1), (0, 0))))
+    assert err <= tol
 
 
 def test_conv3d_valid_ring_path_rejects_misaligned_input(cuda):
