@@ -921,35 +921,39 @@ def dot_cases(gemms, dtype) -> list:
     return cases
 
 
-def dot_sums(rows, dt, other=None) -> None:
+def dot_sums(rows, dt, other=None) -> dict:
     """K3 over the 15 layer GEMMs in ``dt`` beside cuBLAS, the bound and,
-    where given, the rows' ``other`` key."""
+    where given, the rows' ``other`` key; printed, and returned as a dict."""
     sel = [r for r in rows if r["name"] in {f"dot_blocked[{n},{dt}]" for n in LAYER_NAMES}]
     ms, lib, bound = (sum(r[k] for r in sel) for k in ("ms", "library_ms", "bound_ms"))
-    extra = f", {other} {sum(r[other] for r in sel):.3f} ms" if other else ""
+    sums = {"dtype": dt, "gemms": len(sel), "ms": ms, "library_ms": lib, "bound_ms": bound}
+    extra = ""
+    if other:
+        sums[other] = sum(r[other] for r in sel)
+        extra = f", {other} {sums[other]:.3f} ms"
     print(f"K3 {dt}, 15 layer GEMMs: kernel {ms:.3f} ms, cuBLAS {lib:.3f} ms (kernel/cuBLAS "
           f"{ms / lib:.3f}), bound {bound:.3f} ms (kernel at {100 * bound / ms:.1f}% of it){extra}",
           flush=True)
+    return sums
 
 
 def dot_phase(gemms, k1_rows, dev) -> list:
     """K3 at the TPU probe's shapes and at each K1 layer's GEMM shape, in
     bfloat16 and float32, each on the path it must take (``dot_cases``).
-    Prints the sums over the 15 layer GEMMs beside cuBLAS and the bound, and
-    K3's time over K1's per layer."""
+    Prints the sums over the 15 layer GEMMs beside cuBLAS and the bound,
+    K3's time over K1's per layer (where the ``k1`` phase ran), and both as
+    one JSON line ``{"k3_summary": ...}``."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         print(f"K3 vs plain, {dtype}:")
         for name, x_shape, n, pieces, route in dot_cases(gemms, dtype):
             rows.append(check_dot(name, x_shape, n, dtype, dev, pieces, route))
             torch.cuda.empty_cache()
-    for dt in ("bf16", "f32"):
-        dot_sums(rows, dt)
-    if not k1_rows:
-        return rows
+    summary = {"sums": [dot_sums(rows, dt) for dt in ("bf16", "f32")], "k3_over_k1": {}}
     k1 = {r["name"]: r["ms"] for r in k1_rows}
-    for dt in ("bf16", "f32"):
+    for dt in ("bf16", "f32") if k1_rows else ():
         print(f"K3 / K1 per layer, {dt} (K3: the product alone, on a dense A; K1: the conv):")
+        ratios = {}
         tot1 = tot3 = 0.0
         for row in rows:
             m = re.fullmatch(rf"dot_blocked\[(.+),{dt}\]", row["name"])
@@ -957,8 +961,12 @@ def dot_phase(gemms, k1_rows, dev) -> list:
                 continue
             t1 = k1[f"conv3d_valid[{m.group(1)},{dt}]"]
             tot1, tot3 = tot1 + t1, tot3 + row["ms"]
+            ratios[m.group(1)] = {"k1_ms": t1, "k3_ms": row["ms"], "k3_over_k1": row["ms"] / t1}
             print(f"  {m.group(1):12s} K1 {t1:8.3f} ms  K3 {row['ms']:8.3f} ms  K3/K1 {row['ms'] / t1:.3f}")
         print(f"  15 layers    K1 {tot1:8.3f} ms  K3 {tot3:8.3f} ms  K3/K1 {tot3 / tot1:.3f}")
+        ratios["15 layers"] = {"k1_ms": tot1, "k3_ms": tot3, "k3_over_k1": tot3 / tot1}
+        summary["k3_over_k1"][dt] = ratios
+    print(json.dumps({"k3_summary": summary}), flush=True)
     return rows
 
 

@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include "hopper_mma.cuh"
@@ -669,13 +670,19 @@ cudaError_t launch(const BasicArgs& p, cudaStream_t stream) {
   using C = Cfg<T, BN>;
   auto* kernel = conv3d_valid_kernel<T, BN, VEC>;
   const int smem = Layout<T, BN>::bytes(p.a.kx * p.a.ky * p.a.kz);
-  // above 48 KB of dynamic shared memory a kernel must opt in, per device
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const long long m_tiles = (p.a.M + C::BM - 1) / C::BM;
   if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)m_tiles, (unsigned)((p.a.Cout + BN - 1) / BN));
+  // above 48 KB of dynamic shared memory a kernel must opt in, per device.
+  // The attribute belongs to the kernel, which every host thread shares,
+  // and smem follows the taps: set and launch under one lock, or a thread
+  // that sets a smaller size in between (data-parallel replicas launch from
+  // threads of their own) gets this launch refused
+  static std::mutex attribute_lock;
+  std::lock_guard<std::mutex> hold(attribute_lock);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -18,7 +18,7 @@
 // 1.739 ms of tensor-core operations at 989 TFLOP/s) and 7.09 GB
 // ([6*492*494, 2304] x [2304, 128]: 2.118 ms, against 0.870 ms), so both
 // are bound by bytes, A's most of all (4.48 and 6.72 GB).  float32 runs on
-// the FMA units (67 TFLOP/s) and is bound by operations.
+// the FMA units (67 TFLOP/s): see the basic path below.
 //
 // dot_blocked_route() picks the path from (dtype, K, N) alone:
 //
@@ -44,15 +44,37 @@
 //   bf16 once, stages the warpgroup's rows in shared memory and stores them
 //   16 bytes at a time, masked by whole 8-column chunks.
 //
-// The basic path, float32, and bfloat16 with K or N not a multiple of 8
-// (the layer GEMM of the 1x1 output conv, N = 1): each 256-thread block owns
-// a 128 x BN tile (BN = 16, 32 or 64) and walks K in 32-wide slices staged
-// in shared memory by 2-byte loads; bfloat16 multiplies through WMMA
-// (mma.sync, 16x16x16) and stages the float32 tile through shared memory for
-// a masked store; float32 runs on the FMA units, so a float32 result stays
-// float32 to the last bit (no TF32).  Ragged edges are zero-filled and
-// masked.  On both paths offsets are 64-bit (a layer GEMM's A slice holds
-// up to 2^31 elements, the second probe 3.36e9).
+// The basic path in float32 (f32::dot_f32_kernel), on the FMA units, so
+// that a float32 result stays float32 to the last bit (no TF32).  At the
+// probe's shapes it is bound by operations (25.68 and 12.84 ms at 67
+// TFLOP/s); at the layer GEMMs with N <= 32 by bytes, A's most of all (a
+// 16-wide product does 8 operations per byte of A).  What it does about it:
+// - The copies never wait for the FMA units.  A ring of 3 or 4 stages in
+//   dynamic shared memory is filled by cp.async while the block works on an
+//   earlier stage, with one __syncthreads a stage.  A copy is 16 bytes
+//   where K % 4 == 0 and x is 16-byte aligned (through L2 only: A is
+//   streamed once), else 4 bytes; a copy past M, K or N is zero-filled
+//   and reads nothing.  A keeps x's layout, K contiguous.
+// - Register tiles sized to N.  Up to N = 64 a block owns all N columns
+//   (256 rows), so A leaves device memory once; wider N takes 128 x 128
+//   tiles, the column tiles of one row tile launched next to each other so
+//   that they share A through L2.  A thread holds 8 x 8 sums (N >= 64),
+//   8 x 4 (N = 32) or 4 x 4 (N = 16), and reads 4 k of each of its rows
+//   and 4 n of B as float4: 16 shared loads for 256 FMAs at 8 x 8.  The
+//   bytes-bound tiles take 32 k a stage, 128 bytes of each row, the long
+//   runs that device memory streams best.  The 16-byte groups of a row are
+//   XOR-swizzled so that the rows a warp reads at once fall in distinct
+//   banks with no padding, and two blocks fit an SM.  (Chosen by timing on
+//   an H100, against K-major A transposed by 4-byte copies, 8 and 16 k a
+//   stage, padded rows, and float2 reads of A.)
+// - Offsets are 64-bit: a layer GEMM's A slice holds up to 2^31 elements,
+//   the second probe 3.36e9.
+//
+// The basic path in bfloat16, K or N not a multiple of 8 (the layer GEMM
+// of the 1x1 output conv, N = 1): each 256-thread block owns a 128 x BN
+// tile (BN = 16, 32 or 64) and walks K in 32-wide slices staged in shared
+// memory by 2-byte loads, multiplies through WMMA (mma.sync, 16x16x16) and
+// stages the float32 tile through shared memory for a masked store.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -60,7 +82,6 @@
 #include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "hopper_tma.cuh"
 
@@ -68,44 +89,40 @@ namespace {
 
 using namespace nvcuda;
 
+// ---------------------------------------------------------------------------
+// The basic path in bfloat16: K or N not a multiple of 8.
+
 constexpr int BM = 128;       // rows of out per block
 constexpr int BK = 32;        // K slice per step
 constexpr int NT = 256;       // threads per block
 constexpr int A_LD = BK + 8;  // shared row stride of the A tile (elements)
 
 struct DotArgs {
-  const void* x;
-  const void* w;
-  void* y;
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  __nv_bfloat16* y;
   long long M;
   int K;
   int N;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // Load the A and B tiles of one K step into shared memory, zero past the
 // edges of M, K and N.
-template <typename T, int BN>
-__device__ __forceinline__ void load_tiles(const DotArgs& a, const T* __restrict__ x,
-                                           const T* __restrict__ w, T* As, T* Bs,
-                                           long long m0, int k0, int n0, int tid) {
+template <int BN>
+__device__ __forceinline__ void load_tiles(const DotArgs& a,
+                                           const __nv_bfloat16* __restrict__ x,
+                                           const __nv_bfloat16* __restrict__ w, __nv_bfloat16* As,
+                                           __nv_bfloat16* Bs, long long m0, int k0, int n0,
+                                           int tid) {
   constexpr int B_LD = BN + 8;
   constexpr int ROWS_PER_PASS = NT / BK;
-  const T zero = from_float<T>(0.f);
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
   // A: each thread owns one K column of the tile, a warp one row's 32 k.
   const int kk = tid % BK;
   const int k = k0 + kk;
   const bool kvalid = k < a.K;
-  T va[BM / ROWS_PER_PASS];
+  __nv_bfloat16 va[BM / ROWS_PER_PASS];
 #pragma unroll
   for (int i = 0; i < BM / ROWS_PER_PASS; ++i) {
     const long long m = m0 + tid / BK + i * ROWS_PER_PASS;
@@ -126,138 +143,357 @@ __device__ __forceinline__ void load_tiles(const DotArgs& a, const T* __restrict
   }
 }
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(NT) dot_blocked_kernel(DotArgs a) {
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
   constexpr int B_LD = BN + 8;
   constexpr int C_LD = BN + 4;
-  constexpr int AB_BYTES = (BM * A_LD + BK * B_LD) * (int)sizeof(T);
-  constexpr int C_BYTES = kTensorCores ? BM * C_LD * (int)sizeof(float) : 0;
+  constexpr int AB_BYTES = (BM * A_LD + BK * B_LD) * 2;
+  constexpr int C_BYTES = BM * C_LD * (int)sizeof(float);
   constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
 
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + BM * A_LD;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + BM * A_LD;
 
-  const T* __restrict__ x = static_cast<const T*>(a.x);
-  const T* __restrict__ w = static_cast<const T*>(a.w);
-  T* __restrict__ y = static_cast<T*>(a.y);
+  const __nv_bfloat16* __restrict__ x = a.x;
+  const __nv_bfloat16* __restrict__ w = a.w;
+  __nv_bfloat16* __restrict__ y = a.y;
   const int tid = threadIdx.x;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  if constexpr (kTensorCores) {
-    constexpr int WN = BN / 16 >= 2 ? 2 : 1;  // warps along N
-    constexpr int WM = (NT / 32) / WN;        // warps along M
-    constexpr int FM = BM / WM / 16;          // 16x16 fragments per warp, M
-    constexpr int FN = BN / WN / 16;          // 16x16 fragments per warp, N
-    const int warp = tid / 32;
-    const int wm = warp / WN;
-    const int wn = warp % WN;
+  constexpr int WN = BN / 16 >= 2 ? 2 : 1;  // warps along N
+  constexpr int WM = (NT / 32) / WN;        // warps along M
+  constexpr int FM = BM / WM / 16;          // 16x16 fragments per warp, M
+  constexpr int FN = BN / WN / 16;          // 16x16 fragments per warp, N
+  const int warp = tid / 32;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < FM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-    for (int k0 = 0; k0 < a.K; k0 += BK) {
-      load_tiles<T, BN>(a, x, w, As, Bs, m0, k0, n0, tid);
-      __syncthreads();
+  for (int k0 = 0; k0 < a.K; k0 += BK) {
+    load_tiles<BN>(a, x, w, As, Bs, m0, k0, n0, tid);
+    __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
 #pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * FM * 16 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * FN * 16 + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // Epilogue: stage the float32 tile through shared memory for a
-    // coalesced, masked store.
-    float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * FM * 16 + i * 16) * A_LD + kk, A_LD);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * C_LD + wn * FN * 16 + j * 16,
-                                acc[i][j], C_LD, wmma::mem_row_major);
+        wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * FN * 16 + j * 16, B_LD);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
     __syncthreads();
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const long long m = m0 + r;
-      const int n = n0 + c;
-      if (m < a.M && n < a.N) y[m * a.N + n] = from_float<T>(Cs[r * C_LD + c]);
-    }
-  } else {
-    // float32 on the FMA units: each thread owns TM rows x TN columns,
-    // strided by 16 so that a warp reads shared memory without conflicts.
-    constexpr int TN = BN / 16;
-    constexpr int TM = BM / 16;
-    const int tn = tid % 16;
-    const int tm = tid / 16;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
 
-    for (int k0 = 0; k0 < a.K; k0 += BK) {
-      load_tiles<T, BN>(a, x, w, As, Bs, m0, k0, n0, tid);
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float av[TM];
-        float bv[TN];
+  // Epilogue: stage the float32 tile through shared memory for a
+  // coalesced, masked store.
+  float* Cs = reinterpret_cast<float*>(smem);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) av[i] = As[(tm + 16 * i) * A_LD + kk];
+  for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * B_LD + tn + 16 * j];
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(Cs + (wm * FM * 16 + i * 16) * C_LD + wn * FN * 16 + j * 16,
+                              acc[i][j], C_LD, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += NT) {
+    const int r = e / BN;
+    const int c = e % BN;
+    const long long m = m0 + r;
+    const int n = n0 + c;
+    if (m < a.M && n < a.N) y[m * a.N + n] = __float2bfloat16(Cs[r * C_LD + c]);
+  }
+}
+
+template <int BN>
+cudaError_t launch(const DotArgs& a, cudaStream_t stream) {
+  const long long m_tiles = (a.M + BM - 1) / BM;
+  const dim3 grid((unsigned)m_tiles, (unsigned)((a.N + BN - 1) / BN));
+  dot_blocked_kernel<BN><<<grid, NT, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const DotArgs& a, cudaStream_t stream) {
+  if ((a.M + BM - 1) / BM > 0x7fffffffLL || (a.N + 15) / 16 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.N <= 16) return launch<16>(a, stream);
+  if (a.N <= 32) return launch<32>(a, stream);
+  return launch<64>(a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The basic path in float32: FMA register tiles fed by a cp.async ring.
+
+namespace f32 {
+
+constexpr int NT = 256;  // threads per block
+
+// The tile of each N width.  Each thread holds TM rows x TN columns of
+// float32 sums; the block's NT threads are NTM along M by NTN along N, and
+// thread (tm, tn) owns rows tm + NTM i and columns 4 tn + 4 NTN j .. + 3.
+// A stays as it lies in x, K contiguous: a 16-byte copy lands 4 k of a
+// row, and a thread reads 4 k of each of its rows at once; a warp reads
+// 32 / NTN rows of A and one run of B.  Up to N = 32 the product is bound
+// by bytes, and a stage holds 32 k (128 bytes of each row: long runs of
+// device memory); above, by the FMA units, with 8 x 8 sums a thread.
+template <int BN_>
+struct Cfg {
+  static constexpr int BN = BN_;
+  static constexpr int TN = BN <= 32 ? 4 : 8;
+  static constexpr int TM = BN == 16 ? 4 : 8;
+  static constexpr int NTN = BN / TN;
+  static constexpr int NTM = NT / NTN;
+  static constexpr int BM = NTM * TM;  // 256, 256, 256, 128 rows
+  static constexpr int BK = BN == 64 ? 16 : 32;
+  static constexpr int STAGES = BN == 64 ? 4 : 3;
+  // group g of row r lands at g ^ (r & SWZ): the rows a warp reads at once
+  // (32 / NTN of them, RSTEP and NTM apart from a thread's others) fall in
+  // distinct banks without padding
+  static constexpr int SWZ = 32 / NTN - 1;
+  static constexpr int A_ELEMS = BM * BK;
+  static constexpr int STAGE_BYTES = (A_ELEMS + BK * BN) * 4;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // two blocks an SM
+  // copies: a thread takes groups of 4 consecutive k of one row of A (of 4
+  // consecutive n of one row of B), RSTEP rows apart
+  static constexpr int A_GPR = BK / 4;  // groups per row
+  static constexpr int A_RSTEP = NT / A_GPR;
+  static constexpr int A_COPIES = BM / A_RSTEP;
+  static constexpr int B_GPR = BN / 4;
+  static constexpr int B_RSTEP = NT / B_GPR;
+  static constexpr int B_COPIES = (BK + B_RSTEP - 1) / B_RSTEP;
+  static_assert(NTM * NTN == NT && TM % 4 == 0 && TN % 4 == 0, "bad tile");
+  static_assert(BM % A_RSTEP == 0 && SWZ < A_GPR && A_RSTEP % (SWZ + 1) == 0 &&
+                    NTM % (SWZ + 1) == 0,
+                "bad copies");
+  static_assert(2 * (SMEM_BYTES + 1024) <= 233472, "two blocks must fit an SM");
+};
+
+struct Args {
+  const float* x;
+  const float* w;
+  float* y;
+  long long M;
+  int K, N;
+  int n_tiles;  // BN-wide column tiles
+  int b16;      // N % 4 == 0 and w 16-byte aligned: B in 16-byte copies
+  int y16;      // N % 4 == 0 and y 16-byte aligned: 16-byte stores
+};
+
+// dst (shared) <- src (global), 4 bytes through L1; ok = false writes zeros
+// and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// A16: A in 16-byte copies (K % 4 == 0 and x 16-byte aligned), else 4-byte
+template <int BN, bool A16>
+__global__ void __launch_bounds__(NT, 2) dot_f32_kernel(const Args a) {
+  using C = Cfg<BN>;
+  constexpr int BM = C::BM, BK = C::BK, STAGES = C::STAGES;
+  constexpr int TM = C::TM, TN = C::TN, NTM = C::NTM, NTN = C::NTN;
+  extern __shared__ __align__(16) float ring[];
+  const uint32_t ring0 = hopper::smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  // the column tiles of one row tile are neighbours in the launch order, so
+  // they run together and A's rows come from device memory once
+  const long long m0 = (long long)(blockIdx.x / a.n_tiles) * BM;
+  const int n0 = (int)(blockIdx.x % a.n_tiles) * BN;
+  const int KT = (a.K + BK - 1) / BK;
+
+  // A: group ag of rows ar + A_RSTEP i (one swizzle for all of them); a
+  // copy past M or K is zero-filled and reads nothing
+  const int ag = tid % C::A_GPR, ar = tid / C::A_GPR;
+  const float* a_src = a.x + (m0 + ar) * a.K + 4 * ag;
+  const long long a_step = (long long)C::A_RSTEP * a.K;
+  const int a_rows = (int)(a.M - m0 - ar < BM ? a.M - m0 - ar : BM);  // rows in range, from ar
+  const uint32_t a_dst = 4 * (ar * BK + 4 * (ag ^ (ar & C::SWZ)));
+  // B: group bg of rows br + B_RSTEP i of the stage
+  const int bg = tid % C::B_GPR, br = tid / C::B_GPR;
+  const int b_n = n0 + 4 * bg;
+  const float* b_src = a.w + (long long)br * a.N + b_n;
+  const uint32_t b_dst = 4 * (C::A_ELEMS + br * BN + 4 * bg);
+
+  auto load_stage = [&](int slot, int kt) {
+    const uint32_t s0 = ring0 + slot * C::STAGE_BYTES;
+    const int k0 = kt * BK;
+    const float* src = a_src + k0;
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < C::A_COPIES; ++i) {
+      const bool row_ok = i * C::A_RSTEP < a_rows;
+      const float* p = src + i * a_step;
+      const uint32_t d = s0 + a_dst + 4 * i * C::A_RSTEP * BK;
+      if constexpr (A16) {
+        // streamed once: through L2 only
+        const bool ok = row_ok && k0 + 4 * ag < a.K;
+        hopper::cp_async16_cg(d, ok ? p : a.x, ok ? 16 : 0);
+      } else {
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = row_ok && k0 + 4 * ag + j < a.K;
+          cp_async4(d + 4 * j, ok ? p + j : a.x, ok);
+        }
       }
-      __syncthreads();
     }
+    // every block reads all of w: through L1
+#pragma unroll
+    for (int i = 0; i < C::B_COPIES; ++i) {
+      const int kr = br + i * C::B_RSTEP;
+      if (C::B_RSTEP * C::B_COPIES > BK && kr >= BK) break;
+      const bool k_ok = k0 + kr < a.K;
+      const float* p = b_src + (long long)(k0 + i * C::B_RSTEP) * a.N;
+      const uint32_t d = s0 + b_dst + 4 * i * C::B_RSTEP * BN;
+      if (a.b16) {
+        const bool ok = k_ok && b_n < a.N;
+        hopper::cp_async16_ca(d, ok ? p : a.w, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = k_ok && b_n + j < a.N;
+          cp_async4(d + 4 * j, ok ? p + j : a.w, ok);
+        }
+      }
+    }
+  };
 
+  const int tn = tid % NTN, tm = tid / NTN;
+  const int swz = tm & C::SWZ;  // the swizzle of rows tm + NTM i
+  float acc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const long long m = m0 + tm + 16 * i;
-      if (m >= a.M) continue;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tn + 16 * j;
-        if (n < a.N) y[m * a.N + n] = from_float<T>(acc[i][j]);
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    hopper::cp_async_commit();
+  }
+  int slot = 0;
+  for (int kt = 0; kt < KT; ++kt) {
+    // stage kt has landed, and every thread is done with the slot that
+    // stage kt + STAGES - 1 overwrites (it held stage kt - 1)
+    hopper::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < KT) load_stage(slot == 0 ? STAGES - 1 : slot - 1, kt + STAGES - 1);
+    hopper::cp_async_commit();
+
+    const float* As = ring + slot * (C::STAGE_BYTES / 4) + tm * BK;
+    const float* Bs = ring + slot * (C::STAGE_BYTES / 4) + C::A_ELEMS + 4 * tn;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(As + NTM * i * BK + 4 * ((k4 / 4) ^ swz));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 bv[TN / 4];
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j) {
+          bv[j] = *reinterpret_cast<const float4*>(Bs + (k4 + kk) * BN + 4 * NTN * j);
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float ak = lane(av[i], kk);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ak, lane(bv[j / 4], j % 4), acc[i][j]);
+        }
+      }
+    }
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+  }
+  hopper::cp_async_wait<0>();  // only empty groups remain; leave none behind
+
+  // epilogue: 16 bytes a store where N % 4 == 0, else masked single floats
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long m = m0 + tm + NTM * i;
+    if (m >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      const int n = n0 + 4 * tn + 4 * NTN * j;
+      if (n >= a.N) continue;
+      float* dst = a.y + m * a.N + n;
+      if (a.y16) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (n + e < a.N) dst[e] = acc[i][4 * j + e];
+        }
       }
     }
   }
 }
 
-template <typename T, int BN>
-cudaError_t launch(const DotArgs& a, cudaStream_t stream) {
-  const long long m_tiles = (a.M + BM - 1) / BM;
-  const dim3 grid((unsigned)m_tiles, (unsigned)((a.N + BN - 1) / BN));
-  dot_blocked_kernel<T, BN><<<grid, NT, 0, stream>>>(a);
+template <int BN, bool A16>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  using C = Cfg<BN>;
+  a.n_tiles = (a.N + BN - 1) / BN;
+  const long long tiles = (a.M + C::BM - 1) / C::BM * a.n_tiles;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;  // one block per tile
+  auto* kernel = dot_f32_kernel<BN, A16>;
+  // above 48 KB of dynamic shared memory a kernel must opt in; the
+  // attribute belongs to the current device, so it is set on every launch.
+  // All of the carveout to shared memory: two blocks an SM.
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)tiles, NT, C::SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const DotArgs& a, cudaStream_t stream) {
-  if (a.N <= 16) return launch<T, 16>(a, stream);
-  if (a.N <= 32) return launch<T, 32>(a, stream);
-  return launch<T, 64>(a, stream);
+template <int BN>
+cudaError_t launch_bn(const Args& a, bool a16, cudaStream_t stream) {
+  return a16 ? launch<BN, true>(a, stream) : launch<BN, false>(a, stream);
 }
+
+// A block owns all N columns up to N = 64; wider N takes 128-column tiles.
+cudaError_t dispatch(const float* x, const float* w, float* y, long long M, int K, int N,
+                     cudaStream_t stream) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  Args a;
+  a.x = x;
+  a.w = w;
+  a.y = y;
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.b16 = N % 4 == 0 && aligned(w);
+  a.y16 = N % 4 == 0 && aligned(y);
+  const bool a16 = K % 4 == 0 && aligned(x);
+  if (N <= 16) return launch_bn<16>(a, a16, stream);
+  if (N <= 32) return launch_bn<32>(a, a16, stream);
+  if (N <= 64) return launch_bn<64>(a, a16, stream);
+  return launch_bn<128>(a, a16, stream);
+}
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // The ring path: bfloat16, K % 8 == 0 and N % 8 == 0.
@@ -549,16 +785,16 @@ extern "C" int dot_blocked(int dtype, const void* x, const void* w, void* y, lon
     r.N = N;
     return (int)ring::dispatch(x, w, r, s);
   }
+  if (dtype == 0) {
+    return (int)f32::dispatch(static_cast<const float*>(x), static_cast<const float*>(w),
+                              static_cast<float*>(y), M, K, N, s);
+  }
   DotArgs a;
-  a.x = x;
-  a.w = w;
-  a.y = y;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.y = static_cast<__nv_bfloat16*>(y);
   a.M = M;
   a.K = K;
   a.N = N;
-  if ((M + BM - 1) / BM > 0x7fffffffLL || (N + 15) / 16 > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s);
-  return (int)err;
+  return (int)dispatch(a, s);
 }

@@ -10,8 +10,10 @@ kernel tiles rows itself.
 
 K3 has two paths (:func:`dot_blocked_route`): a TMA ring feeding wgmma
 for bfloat16 with ``K % 8 == 0`` and ``N % 8 == 0``, and a basic one for
-the rest.  :func:`dot_blocked` launches K3 for a CUDA tensor and raises if
-it cannot; only a tensor on the CPU takes :func:`dot_blocked_plain`.
+the rest (float32: a ``cp.async`` ring feeding FMA register tiles, exact
+float32 with no TF32; bfloat16: WMMA).  :func:`dot_blocked` launches K3
+for a CUDA tensor and raises if it cannot; only a tensor on the CPU takes
+:func:`dot_blocked_plain`.
 """
 
 from __future__ import annotations

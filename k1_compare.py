@@ -36,12 +36,13 @@ build again; its time is the mean of the two.  Prints the shapes, the card
 line and a JSON line of the rows.
 
 K3 (``--kernel k3``): at the TPU probe's two shapes and the 15 layer GEMMs
-of one tile batch (``chip_smoke.dot_cases``), in bfloat16, on the inputs of
-``chip_smoke.dot_inputs``, the other build (held to the plain version),
-then ``chip_smoke.check_dot`` (this K3 on the path it must take against the
-plain version, its time, ``torch.matmul``'s and the bound), then the other
-build again; its time is the mean of the two.  Prints the cases, the sums
-over the layer GEMMs, the card line and a JSON line of the rows.
+of one tile batch (``chip_smoke.dot_cases``), in bfloat16 and then float32,
+on the inputs of ``chip_smoke.dot_inputs``, the other build (held to the
+plain version), then ``chip_smoke.check_dot`` (this K3 on the path it must
+take against the plain version, its time, ``torch.matmul``'s and the
+bound), then the other build again; its time is the mean of the two.
+Prints the cases, the sums over the layer GEMMs per type, the card line
+and a JSON line of the rows.
 
 K1's subpixel route (``--kernel k1-subpixel``, no ``--other``): at the
 three up levels of one bench tile batch (the serving forward of
@@ -165,19 +166,19 @@ def compare_k1(args, card, dev) -> None:
 
 def compare_k3(args, card, dev) -> None:
     from hcunet_tpu_torch.csrc import CudaKernel, build_all
-    from hcunet_tpu_torch.ops.dot import DOT_BLOCKED, dot_blocked_plain
+    from hcunet_tpu_torch.ops.dot import _KERNEL_DTYPES, DOT_BLOCKED, dot_blocked_plain
 
     other_k3 = CudaKernel(str(args.other.resolve()), DOT_BLOCKED.symbol, DOT_BLOCKED.argtypes)
     build_all([DOT_BLOCKED, other_k3])
 
     def other(x, w):
-        """The other build's dot_blocked in bfloat16, called as the port's
+        """The other build's dot_blocked in x's dtype, called as the port's
         wrapper calls it."""
         K, N = w.shape
         y = torch.empty((*x.shape[:-1], N), device=dev, dtype=x.dtype)
         rc = other_k3.function()(
-            1, x.data_ptr(), w.data_ptr(), y.data_ptr(), y.numel() // N, K, N,
-            torch.cuda.current_stream().cuda_stream,
+            _KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(), y.numel() // N,
+            K, N, torch.cuda.current_stream().cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"{args.label} dot_blocked failed: CUDA error {rc}")
@@ -194,25 +195,26 @@ def compare_k3(args, card, dev) -> None:
     torch.cuda.empty_cache()
     key = f"{args.label}_ms"
     rows = []
-    print(f"card: {card}; K3 ({DOT_BLOCKED.source}) vs {args.label} ({args.other}), bf16")
-    for name, x_shape, n, pieces, route in cs.dot_cases(gemms, torch.bfloat16):
-        x, w = cs.dot_inputs(x_shape, n, torch.bfloat16, dev)
-        parts = [x] if pieces is None else [x[:, :, :p] for p in pieces]
-        err, tol = cs.kernel_error(other(x, w), dot_blocked_plain(x, w))
-        if not err <= tol:
-            raise AssertionError(f"{name}: {args.label} max error {err} > {tol}")
-        t_other = cs.cuda_ms(lambda: [other(p, w) for p in parts])
-        row = cs.check_dot(name, x_shape, n, torch.bfloat16, dev, pieces, route)
-        row[key] = (t_other + cs.cuda_ms(lambda: [other(p, w) for p in parts])) / 2
-        row[f"{args.label}_max_abs_err"] = err
-        rows.append(row)
-        print(f"  {'':34s} {args.label} {row[key]:8.3f} ms, err {err:.3e}; "
-              f"this/{args.label} {row['ms'] / row[key]:.3f}, this/matmul "
-              f"{row['ms'] / row['library_ms']:.3f}, bound/this {row['bound_ms'] / row['ms']:.3f}",
-              flush=True)
-        del x, w, parts
-        torch.cuda.empty_cache()
-    cs.dot_sums(rows, "bf16", key)
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        print(f"card: {card}; K3 ({DOT_BLOCKED.source}) vs {args.label} ({args.other}), {dt}")
+        for name, x_shape, n, pieces, route in cs.dot_cases(gemms, dtype):
+            x, w = cs.dot_inputs(x_shape, n, dtype, dev)
+            parts = [x] if pieces is None else [x[:, :, :p] for p in pieces]
+            err, tol = cs.kernel_error(other(x, w), dot_blocked_plain(x, w))
+            if not err <= tol:
+                raise AssertionError(f"{name}: {args.label} max error {err} > {tol}")
+            t_other = cs.cuda_ms(lambda: [other(p, w) for p in parts])
+            row = cs.check_dot(name, x_shape, n, dtype, dev, pieces, route)
+            row[key] = (t_other + cs.cuda_ms(lambda: [other(p, w) for p in parts])) / 2
+            row[f"{args.label}_max_abs_err"] = err
+            rows.append(row)
+            print(f"  {'':34s} {args.label} {row[key]:8.3f} ms, err {err:.3e}; "
+                  f"this/{args.label} {row['ms'] / row[key]:.3f}, this/matmul "
+                  f"{row['ms'] / row['library_ms']:.3f}, bound/this {row['bound_ms'] / row['ms']:.3f}",
+                  flush=True)
+            del x, w, parts
+            torch.cuda.empty_cache()
+        cs.dot_sums(rows, dt, key)
     print(card)
     print(json.dumps({"k3": rows}))
 

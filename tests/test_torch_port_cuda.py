@@ -9,6 +9,7 @@ no JAX, so they also run where JAX is not installed::
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import pytest
@@ -625,6 +626,35 @@ def test_conv3d_valid_basic_path_refuses_wide_kernels(cuda):
     assert err <= tol
 
 
+def test_conv3d_valid_basic_launches_from_threads_with_other_taps(cuda):
+    """Two host threads launch one basic-path instantiation at once with
+    different tap counts, so different shared memory sizes, as data-parallel
+    replicas do: the kernel's attribute is set and the kernel launched under
+    one lock, so no launch is refused by the other thread's size."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 16, 16, 8, 8), generator=gen).to(cuda)
+    ws = [torch.randn((k, k, k, 8, 16), generator=gen).to(cuda) for k in (1, 3)]
+    errors = []
+
+    def launch_many(w):
+        try:
+            for _ in range(300):
+                conv3d_valid(x, w)
+        except RuntimeError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch_many, args=(w,)) for w in ws]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors[0]
+    for w in ws:
+        err, tol = _k1_gap(conv3d_valid(x, w), conv3d_valid_plain(x, w))
+        assert err <= tol
+
+
 def test_conv3d_valid_ring_path_rejects_misaligned_input(cuda):
     """The ring copies 16 bytes at a time: an input that does not start on
     a 16-byte boundary is copied once to an aligned allocation and still
@@ -866,6 +896,52 @@ def test_dot_blocked_ring_path_copies_misaligned_input(cuda):
     assert xm.data_ptr() % 16 and wm.data_ptr() % 16 and xm.is_contiguous()
     for a, b in ((xm, w), (x, wm), (xm, wm)):
         _check_dot(a, b, "ring")
+
+
+# K3's float32 path (the FMA tiles: all N in one 16-, 32- or 64-wide tile,
+# 128-wide column tiles above N = 64, of 512, 512, 256 and 128 rows): N 1
+# to 384 on both sides of each tile width; M ragged against each row tile,
+# one short and one past, and a single row; K not a multiple of 4 (4-byte
+# copies of A) and deep (2304); N not a multiple of 4 (4-byte copies of w,
+# masked stores); 16 row tiles of 3 column tiles each.
+DOT_F32_CASES = [
+    ((1, 1, 1, 36), 1),
+    ((1, 3, 171, 16), 1),
+    ((2, 7, 37, 72), 8),
+    ((1, 1, 1023, 144), 16),
+    ((1, 5, 103, 13), 17),
+    ((1, 1, 1025, 288), 32),
+    ((1, 3, 11, 2304), 33),
+    ((1, 1, 257, 576), 64),
+    ((1, 9, 29, 30), 65),
+    ((1, 1, 129, 1152), 128),
+    ((1, 2, 99, 7), 129),
+    ((1, 1, 2000, 768), 384),
+    ((3, 17, 5, 2304), 128),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DOT_F32_CASES)))
+def test_dot_blocked_f32_path_matches_plain(cuda, case):
+    xs, n = DOT_F32_CASES[case]
+    assert dot_blocked_route(torch.float32, xs[-1], n) == "basic"
+    x, w = _dot_inputs(xs, n, torch.float32, 400 + case, cuda)
+    _check_dot(x, w, "basic")
+
+
+@pytest.mark.parametrize("xs,n", [((1, 3, 343, 72), 16), ((1, 2, 67, 576), 64),
+                                  ((1, 1, 300, 768), 384)])
+def test_dot_blocked_f32_path_takes_misaligned_inputs(cuda, xs, n):
+    """An x or w that starts 4 bytes off a 16-byte boundary (a view into a
+    larger tensor) takes the 4-byte copies, in place."""
+    x, w = _dot_inputs(xs, n, torch.float32, 500 + n, cuda)
+    xm = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    wm = torch.empty(w.numel() + 1, device=cuda)[1:].view(w.shape)
+    xm.copy_(x)
+    wm.copy_(w)
+    assert xm.data_ptr() % 16 == 4 and wm.data_ptr() % 16 == 4 and xm.is_contiguous()
+    for a, b in ((xm, w), (x, wm), (xm, wm)):
+        _check_dot(a, b, "basic")
 
 
 def test_dot_blocked_route_is_the_c_entry_points(cuda):
