@@ -10,8 +10,9 @@ toolkit::
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
 ``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
 (9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
-``rtrain`` (14), ``dtrain`` (15), ``mesh`` (16) and ``hcat`` (17); phases 1, 2
-(only the kernels the chosen phases launch) and 18 always run.  A run of fewer
+``rtrain`` (14), ``dtrain`` (15), ``mesh`` (16), ``hcat`` (17) and ``bench``
+(18); phases 1, 2 (only the kernels the chosen phases launch) and 19 always
+run.  A run of fewer
 than all phases reports no launch counts (they are the whole main path's)
 and ends with
 ``{"partial": true, "phases": [...], ...}`` instead of the result line.
@@ -108,7 +109,11 @@ Phases (any failure exits non-zero):
     at torch's TF32 defaults and of ``analyze()`` itself at them, against
     the checked run's; ``analyze()`` at torch's defaults must give the map
     within 1e-5 and the same ``cells.csv``, since the library turns TF32
-    off for its own calls); ``validate`` and ``train-unet`` (1 epoch, crop 128 x
+    off for its own calls); fault F6: ``predict_cell_candidates`` with the
+    float32 detector on the scene at torch's TF32 defaults through its
+    unrepaired body against TF32 off (the gap printed), and the repaired
+    entry point at those defaults equal to TF32 off; ``validate`` and
+    ``train-unet`` (1 epoch, crop 128 x
     128 x 12) on a 2-sample
     ``.npy`` Stack; ``run_batch`` over a ``.npy`` scene with the command
     line's model loading, a second pass all cached; the ``hcat`` facade's
@@ -184,10 +189,21 @@ Phases (any failure exits non-zero):
     four functions on CUDA tensors against CPU tensors within 1e-6
     relative; ``utils.pad_image_with_reflections`` on a CUDA tensor and the
     four window filters on a CUDA volume equal to the host's and the CPU's;
-18. print one JSON line of kernel rows (``launches``: the count over the
+18. the benchmark module (``bench_phase``): ``python -m
+    hcunet_tpu_torch.cli bench --headline --recurrent`` as a subprocess at
+    full size (2304^2 x 15 tiled inference, the RecursiveUNet at 256^2 x
+    10, ``split_x=4``) within a 240 s budget, exit code 0 and one value
+    line per metric on an H100; the seeded inits of the bench's three
+    models timed; the pipeline metric in this process on the ``cli``
+    phase's 384^2 x 12 scene (the fit, the bf16 ResNet50-FPN detector, 4
+    chunks) with a soft deadline 30 s away, K1 15 launches per tile batch
+    of every chunk in every ``analyze`` call, ``analyze``'s four stages
+    timed, and the bf16 detector's candidates;
+19. print one JSON line of kernel rows (``launches``: the count over the
     paths, slices 1-3, the subpixel request, training, the command
-    line's ``analyze``, the recurrent forwards and fits, the mesh paths
-    and the hcat facades, with ``launches_by_path`` beside it; K1's input-gradient rows
+    line's ``analyze``, the recurrent forwards and fits, the mesh paths,
+    the hcat facades and the in-process bench metric, with
+    ``launches_by_path`` beside it; K1's input-gradient rows
     count the three training paths' input-gradient launches), the card
     line, and the result line.
 
@@ -971,25 +987,12 @@ def dot_phase(gemms, k1_rows, dev) -> list:
 
 
 def pipeline_scene(X, Y, Z, n_cells, seed=0):
-    """The JAX bench's pipeline scene (``hcunet_tpu/benchmarks.py:315
-    _blob_scene``): a 4-channel uint16 volume of gaussian-blob cells, and its
-    truth map."""
-    rng = np.random.default_rng(seed)
-    prob = np.zeros((X, Y, Z), np.float32)
-    r = 18
-    zz = (np.arange(Z) - Z // 2).astype(np.float32) ** 2 / 12.0
-    for _ in range(n_cells):
-        x0 = int(rng.uniform(r, X - r))
-        y0 = int(rng.uniform(r, Y - r))
-        xs, ys = slice(x0 - r, x0 + r), slice(y0 - r, y0 + r)
-        gx = (np.arange(x0 - r, x0 + r) - x0).astype(np.float32) ** 2
-        gy = (np.arange(y0 - r, y0 + r) - y0).astype(np.float32) ** 2
-        g = np.exp(-(gx[:, None, None] + gy[None, :, None]) / 90.0 - zz[None, None, :])
-        prob[xs, ys] = np.maximum(prob[xs, ys], g)
-    vol = np.stack([prob * s for s in (0.9, 1.0, 0.95, 0.9)], axis=-1) + rng.normal(
-        0, 0.01, (X, Y, Z, 4)
-    ).astype(np.float32)
-    return (vol.clip(0, 1) * 65535.0 + 0.5).astype(np.uint16), prob
+    """The bench's pipeline scene (``hcunet_tpu_torch/benchmarks.py::
+    _blob_scene``, the twin of ``hcunet_tpu/benchmarks.py:315``): a
+    4-channel uint16 volume of gaussian-blob cells, and its truth map."""
+    from hcunet_tpu_torch.benchmarks import _blob_scene
+
+    return _blob_scene(X, Y, Z, n_cells, seed=seed)
 
 
 def unet_tile_batches(spatial, tile_cfg) -> int:
@@ -1272,14 +1275,12 @@ def slice2_phase(model, dev, kernels) -> dict:
 
 
 def fit_batch():
-    """The JAX bench's fit input: the 256^2 crop of the pipeline scene,
-    normalized ``(v - 0.5) / 0.5`` after the integer unit scale, and the
-    target ``truth > 0.3``."""
-    vol, truth = pipeline_scene(*PIPELINE_SCENE, PIPELINE_CELLS, seed=SEED)
-    volf = vol[:FIT_CROP, :FIT_CROP].astype(np.float32) / np.float32(65536.0)
-    x = ((volf - np.float32(0.5)) / np.float32(0.5))[None]
-    y = (truth[:FIT_CROP, :FIT_CROP] > 0.3)[None, ..., None].astype(np.float32)
-    return x, y
+    """The bench's fit input (``hcunet_tpu_torch/benchmarks.py::_fit_batch``):
+    the 256^2 crop of the pipeline scene, normalized ``(v - 0.5) / 0.5``
+    after the integer unit scale, and the target ``truth > 0.3``."""
+    from hcunet_tpu_torch.benchmarks import _fit_batch
+
+    return _fit_batch(*pipeline_scene(*PIPELINE_SCENE, PIPELINE_CELLS, seed=SEED), crop=FIT_CROP)
 
 
 def layer_weight_shapes(cfg) -> list:
@@ -1904,6 +1905,64 @@ def capture_analyze(results, label):
         pipeline.analyze = inner
 
 
+def match_candidates(got, want) -> tuple:
+    """Each of ``got``'s candidates matched to the nearest of ``want``'s on
+    its z plane with its label (the largest box coordinate difference):
+    ``(max |d score| over the matches within 1 px, max |d box| over them,
+    candidates of got without such a match)``."""
+    worst_score = worst_box = 0.0
+    unmatched = 0
+    for i in range(len(got["scores"])):
+        same = (want["z_level"] == got["z_level"][i]) & (want["labels"] == got["labels"][i])
+        if not same.any():
+            unmatched += 1
+            continue
+        dist = np.abs(want["boxes"][same] - got["boxes"][i]).max(1)
+        j = int(dist.argmin())
+        if dist[j] > 1.0:
+            unmatched += 1
+            continue
+        worst_box = max(worst_box, float(dist[j]))
+        worst_score = max(worst_score, abs(float(want["scores"][same][j] - got["scores"][i])))
+    return worst_score, worst_box, unmatched
+
+
+def f6_detector(det, vol, dev) -> None:
+    """Fault F6 for the detection entry points: ``predict_cell_candidates``
+    with the float32 detector on the ``cli`` scene (normalized as
+    ``analyze`` does, the detection channels) with TF32 off, against its
+    unrepaired body (``dispatch_cell_candidates.__wrapped__``, before the
+    ``exact_float32`` wrap) at torch's TF32 defaults: the measured gap.
+    The repaired entry point at torch's defaults must equal the TF32-off
+    run (``cudnn.deterministic`` on)."""
+    from hcunet_tpu_torch.config import PipelineConfig
+    from hcunet_tpu_torch.infer.detect import (
+        collect_cell_candidates,
+        dispatch_cell_candidates,
+        predict_cell_candidates,
+    )
+
+    x = torch.from_numpy(vol.astype(np.float32)).to(dev)
+    image = ((x / 65536.0 - 0.5) / 0.5)[..., list(PipelineConfig().detection_channels)]
+    with tf32(False):
+        off = predict_cell_candidates(image, det, device=dev)
+    with tf32(True):
+        unrepaired = collect_cell_candidates(
+            dispatch_cell_candidates.__wrapped__(image, det, device=dev))
+        repaired = predict_cell_candidates(image, det, device=dev)
+    d_score, d_box, unmatched = match_candidates(unrepaired, off)
+    equal = all(np.array_equal(repaired[k], off[k]) for k in off)
+    print(f"F6 predict_cell_candidates, float32 ResNet50-FPN on {tuple(image.shape)}: TF32 off "
+          f"{len(off['scores'])} boxes; unrepaired at torch's TF32 defaults "
+          f"{len(unrepaired['scores'])} boxes, max |d score| {d_score:.3e} and max |d box| "
+          f"{d_box:.3e} px over the matched ones, {unmatched} unmatched; the repaired entry "
+          f"point at torch's defaults {len(repaired['scores'])} boxes, equal to TF32 off: "
+          f"{equal}", flush=True)
+    if not equal or not len(off["scores"]):
+        raise AssertionError("F6: predict_cell_candidates at torch's TF32 defaults parts from "
+                             "TF32 off")
+
+
 def cli_phase(model, dev, kernel, keep=None) -> int:
     """The user entry points on the card: the command line's ``analyze``
     (float32, as it serves a checkpoint) on a ``CLI_SCENE`` pipeline scene
@@ -2027,6 +2086,8 @@ def cli_phase(model, dev, kernel, keep=None) -> int:
                                      f"{dp:.3e}, cells.csv byte-equal {same_csv}")
         torch.backends.cudnn.deterministic = True
         marks.append(("F4", time.perf_counter()))
+        f6_detector(det, vol, dev)
+        marks.append(("F6", time.perf_counter()))
 
         summary = cli_main(["validate", stack, "--unet", unet_path])
         print(f"cli validate: {summary}", flush=True)
@@ -3848,6 +3909,176 @@ def hcat_phase(dev, kernel) -> int:
     return launches
 
 
+# the bench phase: the command line's bench at full size under this budget,
+# and the pipeline metric in-process on the cli phase's scene with a soft
+# deadline this far away (a cut of depth: PERF.md section 4)
+BENCH_BUDGET_S = 240
+BENCH_PIPELINE_DEADLINE_S = 30.0
+BENCH_METRICS = ("tiled_unet3d_inference", "recurrent_packed_serving")
+
+
+def check_bench_record(rec, keys) -> None:
+    """A bench record: the twin's ``keys`` and ``device``, a finite value
+    above 0, measured on an H100."""
+    if set(rec) != set(keys) | {"device"}:
+        raise AssertionError(f"bench record keys {sorted(rec)}, expected {sorted(keys)} + device")
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+        raise AssertionError(f"bench value {rec['value']}")
+    if "H100" not in rec["device"]["name"]:
+        raise AssertionError(f"bench device {rec['device']}")
+
+
+def bench_cli(cache_dir) -> list:
+    """``python -m hcunet_tpu_torch.cli bench --headline --recurrent`` as a
+    user runs it, at full size, with ``HCUNET_BENCH_BUDGET_S`` at
+    ``BENCH_BUDGET_S`` and its ledger in ``cache_dir``: exit code 0 and one
+    value line per metric, no error or skip.  The command and its metric
+    children run in a process group of their own, killed if it outlives its
+    budget.  Returns the records."""
+    env = dict(os.environ, HCUNET_BENCH_BUDGET_S=str(BENCH_BUDGET_S), HCUNET_CACHE_DIR=cache_dir)
+    env.pop("HCUNET_NO_CACHE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hcunet_tpu_torch.cli", "bench", "--headline", "--recurrent"],
+        cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=BENCH_BUDGET_S + 60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    secs = time.perf_counter() - t0
+    lines = [line for line in out.splitlines() if line.strip()]
+    for line in lines:
+        print(f"bench: {line}", flush=True)
+    print(f"bench --headline --recurrent: exit code {proc.returncode} in {secs:.1f} s "
+          f"(budget {BENCH_BUDGET_S} s)", flush=True)
+    if proc.returncode != 0:
+        print(err[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"bench exited {proc.returncode}")
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    if [r.get("metric") for r in records] != list(BENCH_METRICS):
+        raise AssertionError(f"bench printed {records}, expected one line per {BENCH_METRICS}")
+    for rec in records:
+        if "error" in rec or "skipped" in rec:
+            raise AssertionError(f"bench line {rec}")
+        check_bench_record(rec, {"metric", "value", "unit", "vs_baseline", "reps"})
+    return records
+
+
+def bench_inits(dev) -> None:
+    """The seeded inits of the bench's three models, each on the card."""
+    from hcunet_tpu_torch import benchmarks
+    from hcunet_tpu_torch.config import RUNetConfig, UNetConfig
+
+    made = {"production_3d U-Net": lambda: benchmarks._init_unet(UNetConfig.production_3d()),
+            "RecursiveUNet": lambda: benchmarks._init_runet(RUNetConfig(timesteps=10)),
+            "ResNet50-FPN detector": lambda: benchmarks._init_detector(dev)}
+    secs = {}
+    for name, make in made.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make().to(dev)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    print("bench seeded inits, each moved to the card: "
+          + ", ".join(f"{n} {s:.3f} s" for n, s in secs.items()), flush=True)
+
+
+def bench_pipeline(dev, kernel) -> int:
+    """The pipeline metric in this process on the ``cli`` phase's scene,
+    its soft deadline ``BENCH_PIPELINE_DEADLINE_S`` away: the fit, the
+    bf16 detector, a warm-up and as many reps as the deadline leaves.
+    Every ``analyze`` call must launch K1 15 times per tile batch of every
+    chunk (14 ring, 1 basic); prints the bf16 detector's candidates and the
+    cells of the last call.  Returns K1's launches over the metric (counts
+    set to 0 just before it)."""
+    import hcunet_tpu_torch.infer.pipeline as pipeline
+    from hcunet_tpu_torch import benchmarks
+    from hcunet_tpu_torch.config import UNetConfig, auto_tile_config, device_hbm_bytes
+
+    scene = benchmarks._blob_scene(*CLI_SCENE, CLI_CELLS, seed=SEED)
+    tiles = auto_tile_config(UNetConfig.production_3d(), hbm_bytes=device_hbm_bytes(dev))
+    n = 3  # the metric's numchunks: (n - 1)^2 chunks
+    edges = np.linspace(0, CLI_SCENE[0], n).astype(int)
+    chunk = (int(edges[1] - edges[0]), int(edges[1] - edges[0]), CLI_SCENE[2])
+    batches = unet_tile_batches(chunk, tiles) * (n - 1) ** 2
+    want = {"basic": batches, "ring": 14 * batches}
+    calls = []
+    inner = pipeline.analyze
+
+    def counted(*args, **kwargs):
+        before = dict(kernel.route_launches)
+        res = inner(*args, **kwargs)
+        calls.append(({r: k - before[r] for r, k in kernel.route_launches.items()},
+                      len(res.cells), sorted(res.stage_seconds)))
+        return res
+
+    log = ChunkLog()
+    logging.getLogger("hcunet_tpu_torch.infer.pipeline").addHandler(log)
+    pipeline.analyze = counted
+    torch.cuda.synchronize()
+    reset_counts([kernel])
+    t0 = time.perf_counter()
+    try:
+        rec = benchmarks.pipeline_metric(dev, scene, deadline=time.monotonic()
+                                         + BENCH_PIPELINE_DEADLINE_S)
+    finally:
+        pipeline.analyze = inner
+        logging.getLogger("hcunet_tpu_torch.infer.pipeline").removeHandler(log)
+    secs = time.perf_counter() - t0
+    launches = kernel.launches
+    candidates = sum(c.get("candidates", 0) for c in log.counts.values())
+    print(f"bench pipeline metric on {CLI_SCENE} ({CLI_CELLS} cells, the fit, the bf16 "
+          f"detector, {(n - 1) ** 2} chunks of {chunk}, {tiles}) in {secs:.1f} s: "
+          f"{json.dumps(rec)}; analyze calls (warm-up first): K1 by path "
+          f"{[c[0] for c in calls]} (expected {want} each), cells {[c[1] for c in calls]}; "
+          f"the last call's bf16 detector candidates {candidates} "
+          f"{ {k: v.get('candidates') for k, v in sorted(log.counts.items())} }; "
+          f"K1 over the metric {launches}", flush=True)
+    check_bench_record(rec, {"metric", "value", "unit", "vs_baseline", "reps", "stage_seconds",
+                             "transfer_mb"})
+    if len(calls) != rec["reps"] + 1 or any(c[0] != want for c in calls):
+        raise AssertionError(f"bench analyze calls launched K1 {[c[0] for c in calls]}, "
+                             f"expected {rec['reps'] + 1} calls of {want}")
+    stages = ["analytics", "detect", "instance", "unet"]
+    if any(c[2] != stages for c in calls) or sorted(rec["stage_seconds"]) != stages:
+        raise AssertionError(f"bench stage seconds {rec['stage_seconds']}, expected {stages}")
+    if not candidates:
+        raise AssertionError("the bf16 detector found no candidate")
+    return launches
+
+
+def bench_phase(dev, kernel) -> int:
+    """The benchmark module on the card: the command line's ``bench
+    --headline --recurrent`` at full size (a subprocess), the seeded inits,
+    and the pipeline metric in this process at the ``cli`` phase's scene.
+    Returns K1's launches over the in-process metric."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    old = os.environ.get("HCUNET_CACHE_DIR")
+    try:
+        torch.cuda.empty_cache()
+        bench_cli(os.path.join(root, "cli"))
+        t1 = time.perf_counter()
+        bench_inits(dev)
+        # the fit's cache in a fresh directory: the metric fits, as a first run does
+        os.environ["HCUNET_CACHE_DIR"] = os.path.join(root, "inproc")
+        launches = bench_pipeline(dev, kernel)
+    finally:
+        if old is None:
+            os.environ.pop("HCUNET_CACHE_DIR", None)
+        else:
+            os.environ["HCUNET_CACHE_DIR"] = old
+        shutil.rmtree(root, ignore_errors=True)
+    t2 = time.perf_counter()
+    print(f"bench phase: {t2 - t0:.1f} s (command line {t1 - t0:.1f}, inits and the "
+          f"pipeline metric {t2 - t1:.1f})", flush=True)
+    return launches
+
+
 PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
@@ -3864,6 +4095,7 @@ PHASES = {
     "dtrain": (),
     "mesh": ("K1",),
     "hcat": ("K1",),
+    "bench": ("K1",),
 }
 
 
@@ -4034,10 +4266,17 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         marks.append(("hcat", time.perf_counter()))
 
-    # phase 18: results.  A kernel's launches are those of the whole main
+    # phase 18: the benchmark module (the bench command line and metrics)
+    bench_launches = 0
+    if "bench" in phases:
+        bench_launches = bench_phase(dev, CONV3D_VALID)
+        torch.cuda.empty_cache()
+        marks.append(("bench", time.perf_counter()))
+
+    # phase 19: results.  A kernel's launches are those of the whole main
     # path (slices 1-3, the subpixel route, training, the command line, the
-    # recurrent family's serving and training, the mesh paths and the hcat
-    # driver surface):
+    # recurrent family's serving and training, the mesh paths, the hcat
+    # driver surface and the in-process bench metric):
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
@@ -4050,7 +4289,8 @@ def main(argv=None) -> int:
                    "recurrent": rec_launches if k1 else 0,
                    "rtrain": rtrain_counts["forward"] if k1 else 0,
                    "mesh": mesh_counts["forward"] if k1 else 0,
-                   "hcat": hcat_launches if k1 else 0}
+                   "hcat": hcat_launches if k1 else 0,
+                   "bench": bench_launches if k1 else 0}
         for row in kernel_rows:
             row["launches"] = sum(by_path.values()) if full else None
             row["launches_by_path"] = by_path if full else None
@@ -4072,7 +4312,8 @@ def main(argv=None) -> int:
              "dtrain": "detection training no kernel",
              "mesh": f"the mesh paths {mesh_counts['forward']} K1 forward and "
                      f"{mesh_counts['input_grad']} K1 input-gradient",
-             "hcat": f"the hcat driver surface {hcat_launches} K1"}
+             "hcat": f"the hcat driver surface {hcat_launches} K1",
+             "bench": f"the in-process bench pipeline metric {bench_launches} K1"}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hcunet_tpu_torch.core.precision import exact_float32
 
 # ---------------------------------------------------------------------------
 # segmentation QA
@@ -59,6 +60,7 @@ def gfp_histograms(
     return {"auto": auto, "manual": manual, "edges": edges}
 
 
+@exact_float32()
 def validate_segmentation(
     unet_apply,
     dataset,

@@ -14,12 +14,13 @@ Subcommands:
     validate     dice / pixel-error validation on a Stack dataset
     study        aggregate per-cell stats across analyzed images (+figures)
     pretrain-backbone  synthetic backbone pretraining (no-egress ImageNet sub)
+    bench        the three benchmark metrics on the card (hcunet_tpu_torch.benchmarks)
 
-Each parser takes the JAX command's arguments with its defaults; the JAX
-command's ``bench`` waits for its back end.  The
+Each parser takes the JAX command's arguments with its defaults.  The
 commands that run a model also take ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions of the kernels on the host): there is no fallback
-to the CPU when the card is missing.  The training commands start from
+to the CPU when the card is missing.  ``bench`` takes none: it times the
+card only, and exits 1 without one.  The training commands start from
 weights drawn from a seeded generator with the JAX initializers'
 distributions.  Every command computes float32 in float32: ``main`` turns
 TF32 off for the process (:func:`pin_float32`).  Checkpoints are the JAX package's zip
@@ -221,6 +222,16 @@ def _add_predict_recurrent(sub):
     _add_device(p)
 
 
+def _add_bench(sub):
+    p = sub.add_parser("bench", help="run the headline benchmark")
+    p.add_argument("--pipeline", action="store_true",
+                   help="benchmark only the full analyze() pipeline")
+    p.add_argument("--headline", action="store_true",
+                   help="benchmark only the tiled-inference headline")
+    p.add_argument("--recurrent", action="store_true",
+                   help="benchmark only the recurrent packed serving")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hcunet-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -235,6 +246,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_validate(sub)
     _add_study(sub)
     _add_pretrain(sub)
+    _add_bench(sub)
     return parser
 
 
@@ -300,8 +312,19 @@ def main(argv=None):
         "validate": _cmd_validate,
         "study": _cmd_study,
         "pretrain-backbone": _cmd_pretrain,
+        "bench": _cmd_bench,
     }
     return commands[args.cmd](args)
+
+
+def _cmd_bench(args):
+    """The benchmark metrics, always on the card (no ``--device``): each in
+    a process of its own within ``HCUNET_BENCH_BUDGET_S``; returns
+    :func:`hcunet_tpu_torch.benchmarks.run`'s exit code."""
+    from hcunet_tpu_torch import benchmarks
+
+    flags = [f"--{name}" for name in ("pipeline", "headline", "recurrent") if getattr(args, name)]
+    return benchmarks.run(flags)
 
 
 def _load_models(unet_path, detector_path, device):

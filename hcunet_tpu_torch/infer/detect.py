@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from hcunet_tpu_torch.config import resolve_device
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.core.shapes import calculate_indexes
 from hcunet_tpu_torch.infer.candidates import empty_candidates, merge_cell_candidates
 
@@ -37,6 +38,7 @@ DET_PAD = (24, 24)
 DET_EVAL = (1000, 1000)
 
 
+@exact_float32()
 def dispatch_cell_candidates(
     image,
     detector,
@@ -156,6 +158,7 @@ class ShardedDetect:
                     self._replicas[d] = rep
         self._src = None  # the weight tree placed last, by identity
 
+    @exact_float32()
     def detect(self, images, variables=None) -> Dict[str, torch.Tensor]:
         """``images`` ``[B, H, W, 3]``; ``variables`` (optional): a weight
         tree (the detector's state dict, or the JAX ``{"trunk", "head"}``
@@ -186,6 +189,7 @@ class ShardedDetect:
         return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
 
 
+@exact_float32()
 def predict_cell_candidates(
     image,
     detector,

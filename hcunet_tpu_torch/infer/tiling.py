@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from hcunet_tpu_torch.config import TileConfig, UNetConfig, resolve_device
+from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.core.padding import pad_axes, reflection_pad
 from hcunet_tpu_torch.core.shapes import calculate_indexes, unet_shrinkage
 from hcunet_tpu_torch.ops.filters import gaussian_blur
@@ -166,6 +167,7 @@ def postprocess_epilogue(prob: torch.Tensor, postprocess: Tuple[float, float, fl
     return torch.where(prob < floor, 0.0, prob) * scale
 
 
+@exact_float32()
 def predict_segmentation_mask(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
     image,
@@ -234,6 +236,7 @@ def reference_tile_windows(
 
 
 @torch.no_grad()
+@exact_float32()
 def predict_segmentation_mask_reference_grid(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
     image,

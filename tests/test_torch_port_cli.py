@@ -149,7 +149,7 @@ def _options(sub):
 
 
 # the JAX command line's subcommands whose back ends the port has not yet
-NOT_PORTED = ("bench",)
+NOT_PORTED = ()
 
 
 def test_parsers_match_jax():

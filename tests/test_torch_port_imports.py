@@ -49,7 +49,7 @@ for n in ("train.losses", "train.trainer", "train.targets", "train.parity", "uti
           "parallel.train", "analysis.viz", "hcat", "hcat.main", "hcat.unet", "hcat.rcnn",
           "hcat.haircell", "hcat.mask", "hcat.validate", "hcat.validate.render_size",
           "hcat.utils", "hcat.transforms", "hcat.dataloader", "hcat.segment", "hcat.loss",
-          "hcat.r_unet", "hcat.train", "hcat.train.train_utils"):
+          "hcat.r_unet", "hcat.train", "hcat.train.train_utils", "benchmarks"):
     assert "hcunet_tpu_torch." + n in names, n
 assert not leaked, leaked
 """
@@ -63,8 +63,8 @@ def test_port_imports_no_jax_or_jax_package():
     check that neither JAX, flax, optax, msgpack nor the JAX package came
     with it; the detection and recurrent training (detection trainer,
     backbone pretraining, detection metrics), the multi-device package
-    (``parallel``: mesh, sharded inference and training), ``analysis.viz``
-    and the reference's driver surface (``hcunet_tpu_torch.hcat`` and its
+    (``parallel``: mesh, sharded inference and training), ``analysis.viz``,
+    the benchmark module and the reference's driver surface (``hcunet_tpu_torch.hcat`` and its
     submodules, whose top-level ``unet``/``rcnn`` must be the facade's)
     among them; neither the JAX package nor its ``hcat`` alias comes with
     them."""
