@@ -1,0 +1,9 @@
+"""``device_idle_pct.recurrent``: the share of the recurrent serving window in
+which the card ran nothing (kernels, copies and memsets from the profiler's
+trace)."""
+
+from portbench.readers import idle_pct
+
+
+def read(obs):
+    return idle_pct(obs)
