@@ -57,6 +57,7 @@ from hcunet_tpu_torch.models.unet import conv_weight_channels_last, tconv_weight
 from hcunet_tpu_torch.parallel.mesh import canonical_device
 from hcunet_tpu_torch.ops.conv import conv3d_valid, conv_same, conv_transpose_torch, max_pool
 from hcunet_tpu_torch.utils.logging import get_logger
+from hcunet_tpu_torch.utils.profiling import span
 
 log = get_logger(__name__)
 
@@ -324,10 +325,15 @@ def compile_recurrent_apply(
     @exact_float32()
     @torch.no_grad()
     def apply_fn(image: torch.Tensor) -> torch.Tensor:
+        with span("hcunet.recurrent.forward"):
+            return forward(image)
+
+    def forward(image: torch.Tensor) -> torch.Tensor:
         B, X, Y, Z, _ = image.shape
         if X % 4 or Y % 4:
             return plain(image)
-        image = image.to(device=dev, dtype=dtype).contiguous()
+        with span("hcunet.recurrent.upload"):
+            image = image.to(device=dev, dtype=dtype).contiguous()
         n = int(split_x)
         geo = _split_geometry(n, X, halo) if B == 1 else None
         use_split = (
@@ -347,12 +353,13 @@ def compile_recurrent_apply(
         h = [torch.ones((im.shape[0], X // 2, Y // 2, Z, c1), dtype=dtype, device=im.device)
              for im in images]
         for _ in range(cfg.timesteps):
-            if groups:
-                s, h = groups.refresh(s, halo), groups.refresh(h, halo // 2)
-            elif use_split:
-                s, h = [_halo_refresh(s[0], halo)], [_halo_refresh(h[0], halo // 2)]
-            s, h = (list(t) for t in zip(*(timestep(im, s_k, h_k)
-                                           for im, s_k, h_k in zip(images, s, h))))
+            with span("hcunet.recurrent.timestep"):
+                if groups:
+                    s, h = groups.refresh(s, halo), groups.refresh(h, halo // 2)
+                elif use_split:
+                    s, h = [_halo_refresh(s[0], halo)], [_halo_refresh(h[0], halo // 2)]
+                s, h = (list(t) for t in zip(*(timestep(im, s_k, h_k)
+                                               for im, s_k, h_k in zip(images, s, h))))
         out = groups.gather(s, dev) if groups else s[0]
         if use_split:
             out = _split_unstack(out, halo)

@@ -45,6 +45,7 @@ from hcunet_tpu_torch.infer.detect import collect_cell_candidates, dispatch_cell
 from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
 from hcunet_tpu_torch.infer.tiling import postprocess_epilogue, predict_segmentation_mask
 from hcunet_tpu_torch.utils.logging import get_logger
+from hcunet_tpu_torch.utils.profiling import span
 
 log = get_logger(__name__)
 
@@ -330,16 +331,22 @@ def _analyze(path, volume, *, unet_apply, detector, cfg, work_dir, save_plots,
     acct_lock = threading.Lock()
 
     class _staged:
+        """A stage's time into ``stage_seconds`` and, while a profiler
+        collects, its span ``hcunet.analyze.<stage>`` in the trace."""
+
         def __init__(self, name):
             self.name = name
+            self.span = span(f"hcunet.analyze.{name}")
 
         def __enter__(self):
+            self.span.__enter__()
             self.t0 = time.perf_counter()
 
         def __exit__(self, *exc):
             dt = time.perf_counter() - self.t0
             with acct_lock:
                 stage_seconds[self.name] += dt
+            return self.span.__exit__(*exc)
 
     def _count_bytes(key, nb):
         with acct_lock:

@@ -29,6 +29,7 @@ from hcunet_tpu_torch.config import (
 from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.models.unet import UNet
 from hcunet_tpu_torch.utils.logging import get_logger
+from hcunet_tpu_torch.utils.profiling import span
 
 log = get_logger(__name__)
 
@@ -149,30 +150,32 @@ class Segmenter:
 
         if volume.ndim != 4:
             raise ValueError(f"expected [X, Y, Z, C], got {volume.shape}")
-        spatial = volume.shape[:-1]
-        bucket = self.bucket_shape(spatial)
-        if bucket != tuple(spatial):
-            widths = [(0, b - s) for s, b in zip(spatial, bucket)] + [(0, 0)]
-            volume = np.pad(volume, widths, mode="symmetric" if all(
-                b - s <= s for s, b in zip(spatial, bucket)
-            ) else "edge")
-            log.info("bucketed %s -> %s", tuple(spatial), bucket)
-
-        image = np.asarray(volume[None], np.float32)
-        if self._use_sharded(spatial):
-            out = self._sharded_forward()(torch.from_numpy(image))
-        else:
-            out = predict_segmentation_mask(
-                self.apply_fn,
-                image,
-                self.cfg,
-                self.tile_cfg,
-                use_probability_map=self.use_probability_map,
-                postprocess=self.postprocess,
-                device=self.device,
-            )
-        out = out[0, ..., 0].cpu().numpy()
-        return out[: spatial[0], : spatial[1], : spatial[2]]
+        with span("hcunet.serve.predict"):
+            spatial = volume.shape[:-1]
+            bucket = self.bucket_shape(spatial)
+            with span("hcunet.serve.bucket_pad"):
+                if bucket != tuple(spatial):
+                    widths = [(0, b - s) for s, b in zip(spatial, bucket)] + [(0, 0)]
+                    volume = np.pad(volume, widths, mode="symmetric" if all(
+                        b - s <= s for s, b in zip(spatial, bucket)
+                    ) else "edge")
+                    log.info("bucketed %s -> %s", tuple(spatial), bucket)
+                image = np.asarray(volume[None], np.float32)
+            if self._use_sharded(spatial):
+                out = self._sharded_forward()(torch.from_numpy(image))
+            else:
+                out = predict_segmentation_mask(
+                    self.apply_fn,
+                    image,
+                    self.cfg,
+                    self.tile_cfg,
+                    use_probability_map=self.use_probability_map,
+                    postprocess=self.postprocess,
+                    device=self.device,
+                )
+            with span("hcunet.serve.readback"):
+                out = out[0, ..., 0].cpu().numpy()
+            return out[: spatial[0], : spatial[1], : spatial[2]]
 
     def _sharded_forward(self):
         """Build (once) the multi-device tiled forward for this mesh, with

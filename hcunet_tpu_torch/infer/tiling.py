@@ -20,6 +20,7 @@ from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.core.padding import pad_axes, reflection_pad
 from hcunet_tpu_torch.core.shapes import calculate_indexes, unet_shrinkage
 from hcunet_tpu_torch.ops.filters import gaussian_blur
+from hcunet_tpu_torch.utils.profiling import span
 
 
 def _check_geometry(
@@ -128,34 +129,35 @@ def _tiled_forward(
     ``image``: ``[1, X, Y, Z, C]`` (not modified).  Returns the trimmed
     ``[1, X, Y, Z, Cout]`` result.
     """
-    spatial = image.shape[1:-1]
+    with span("hcunet.tiling.tiles"):
+        spatial = image.shape[1:-1]
 
-    # nan/inf scrub (segment.py:66-67)
-    image = torch.nan_to_num(image, nan=0.0, posinf=1.0, neginf=0.0)
+        # nan/inf scrub (segment.py:66-67)
+        image = torch.nan_to_num(image, nan=0.0, posinf=1.0, neginf=0.0)
 
-    # halo by reflection (like the reference), then right-pad the ragged
-    # grid overhang with edge replication — the overhang only feeds halo
-    # regions that get cropped or trimmed anyway.
-    padded = reflection_pad(image, pad)
-    overhang = [n * e - s for n, e, s in zip(n_tiles, eval_size, spatial)]
-    padded = pad_axes(padded, [(0, int(o)) for o in overhang], "edge")
+        # halo by reflection (like the reference), then right-pad the ragged
+        # grid overhang with edge replication — the overhang only feeds halo
+        # regions that get cropped or trimmed anyway.
+        padded = reflection_pad(image, pad)
+        overhang = [n * e - s for n, e, s in zip(n_tiles, eval_size, spatial)]
+        padded = pad_axes(padded, [(0, int(o)) for o in overhang], "edge")
 
-    full = _eval_tile_grid(
-        padded,
-        eval_size=eval_size,
-        pad=pad,
-        batch=batch,
-        n_tiles=n_tiles,
-        apply_fn=apply_fn,
-        use_probability_map=use_probability_map,
-        threshold=threshold,
-    )
-    # trim grid-rounding overhang back to the true volume
-    full = full[:, : spatial[0], : spatial[1], : spatial[2], :]
+        full = _eval_tile_grid(
+            padded,
+            eval_size=eval_size,
+            pad=pad,
+            batch=batch,
+            n_tiles=n_tiles,
+            apply_fn=apply_fn,
+            use_probability_map=use_probability_map,
+            threshold=threshold,
+        )
+        # trim grid-rounding overhang back to the true volume
+        full = full[:, : spatial[0], : spatial[1], : spatial[2], :]
 
-    if postprocess is not None:
-        full = postprocess_epilogue(full, postprocess)
-    return full
+        if postprocess is not None:
+            full = postprocess_epilogue(full, postprocess)
+        return full
 
 
 def postprocess_epilogue(prob: torch.Tensor, postprocess: Tuple[float, float, float]) -> torch.Tensor:
@@ -193,7 +195,8 @@ def predict_segmentation_mask(
         tile_cfg = TileConfig()
     if image.ndim != 5:
         raise ValueError(f"expected [1, X, Y, Z, C], got {tuple(image.shape)}")
-    image = _as_image(image, device)
+    with span("hcunet.tiling.upload"):
+        image = _as_image(image, device)
 
     spatial = tuple(image.shape[1:-1])
     eval_size = tuple(min(e, s) for e, s in zip(tile_cfg.eval_size, spatial))

@@ -22,6 +22,7 @@ instance ids are renumbered across chunks.  Tolerances:
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -42,6 +43,7 @@ from hcunet_tpu_torch import PipelineConfig, TileConfig, WatershedConfig, analyz
 from hcunet_tpu_torch.infer import pipeline as tpipeline
 from hcunet_tpu_torch.infer.compile import compile_serving_apply
 from hcunet_tpu_torch.infer.instance import generate_unique_segmentation_mask
+from hcunet_tpu_torch.utils.profiling import trace
 
 from test_torch_port_detection import _detectors
 from torch_port_support import SMALL, jax_unet, port_unet
@@ -224,10 +226,35 @@ def test_encode_fixed_equals_jax_at_half_quanta():
         np.testing.assert_array_equal(got, np.asarray(jfn(jnp.asarray(prob))))
 
 
-@pytest.mark.parametrize("overlap", [False, 1, 2])
-def test_overlap_gives_the_same_results(runs, models, tmp_path, overlap):
+@pytest.mark.parametrize("overlap, traced", [
+    pytest.param(False, False, id="False"),
+    pytest.param(1, False, id="1"),
+    pytest.param(2, False, id="2"),
+    pytest.param(2, True, id="2-traced"),
+])
+def test_overlap_gives_the_same_results(runs, models, tmp_path, overlap, traced):
+    """``traced``: the run under ``utils/profiling.py::trace`` (as
+    ``analyze --trace``), whose trace holds each stage's span
+    ``hcunet.analyze.<stage>``, the chunk tails' on the tail workers'
+    threads, while ``stage_seconds`` counts the same stages."""
     want, _, vol, cfg = runs["float32"]
-    got = _port(models, vol, cfg, tmp_path / "work", overlap=overlap)
+    if traced:
+        with trace(str(tmp_path / "trace")):
+            got = _port(models, vol, cfg, tmp_path / "work", overlap=overlap)
+        (name,) = os.listdir(tmp_path / "trace")
+        with open(tmp_path / "trace" / name) as f:
+            events = json.load(f)["traceEvents"]
+        stages = {}
+        for ev in events:
+            if ev.get("ph") == "X" and ev.get("name", "").startswith("hcunet.analyze."):
+                stages.setdefault(ev["name"].rsplit(".", 1)[1], set()).add(ev["tid"])
+        assert set(stages) == set(got.stage_seconds) == {"detect", "unet", "instance",
+                                                         "analytics"}
+        # the instance stage runs on the tail workers, the U-Net on the caller
+        assert not stages["instance"] & stages["unet"]
+        assert all(v > 0 for v in got.stage_seconds.values())
+    else:
+        got = _port(models, vol, cfg, tmp_path / "work", overlap=overlap)
     np.testing.assert_array_equal(got.mask, runs["float32"][1].mask)
     np.testing.assert_array_equal(got.unique_mask, runs["float32"][1].unique_mask)
     assert [(c.unique_id, c.center, c.volume) for c in got.cells] == [
