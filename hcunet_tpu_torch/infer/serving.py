@@ -14,6 +14,7 @@ device (:func:`~hcunet_tpu_torch.parallel.tiled.sharded_tiled_forward`).
 
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,7 +27,9 @@ from hcunet_tpu_torch.config import (
     device_hbm_bytes,
     resolve_device,
 )
+from hcunet_tpu_torch.core.padding import pad_axes
 from hcunet_tpu_torch.core.precision import exact_float32
+from hcunet_tpu_torch.infer.tiling import _as_image, predict_segmentation_mask
 from hcunet_tpu_torch.models.unet import UNet
 from hcunet_tpu_torch.utils.logging import get_logger
 from hcunet_tpu_torch.utils.profiling import span
@@ -145,24 +148,31 @@ class Segmenter:
     @exact_float32()
     def predict(self, volume: np.ndarray) -> np.ndarray:
         """``volume``: [X, Y, Z, C] (already normalized).  Returns
-        [X, Y, Z] float probabilities (or uint8 mask)."""
-        from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
+        [X, Y, Z] float probabilities (or uint8 mask).
 
+        The volume goes to the device as given and is padded to its bucket
+        there; the map is cropped back to the volume there too, so the
+        padding never crosses the bus."""
         if volume.ndim != 4:
             raise ValueError(f"expected [X, Y, Z, C], got {volume.shape}")
         with span("hcunet.serve.predict"):
-            spatial = volume.shape[:-1]
+            spatial = tuple(volume.shape[:-1])
             bucket = self.bucket_shape(spatial)
+            with span("hcunet.tiling.upload"), warnings.catch_warnings():
+                # a read-only stack is only read (copied to the device), so
+                # torch's warning on wrapping one says nothing here
+                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+                image = _as_image(volume[None], self.device)
             with span("hcunet.serve.bucket_pad"):
-                if bucket != tuple(spatial):
-                    widths = [(0, b - s) for s, b in zip(spatial, bucket)] + [(0, 0)]
-                    volume = np.pad(volume, widths, mode="symmetric" if all(
-                        b - s <= s for s, b in zip(spatial, bucket)
-                    ) else "edge")
-                    log.info("bucketed %s -> %s", tuple(spatial), bucket)
-                image = np.asarray(volume[None], np.float32)
+                if bucket != spatial:
+                    # one mode for every axis (the JAX package's np.pad rule),
+                    # not pad_to_shape's per-axis fallback
+                    widths = [(0, b - s) for s, b in zip(spatial, bucket)]
+                    symmetric = all(b - s <= s for s, b in zip(spatial, bucket))
+                    image = pad_axes(image, widths, "symmetric" if symmetric else "edge")
+                    log.info("bucketed %s -> %s", spatial, bucket)
             if self._use_sharded(spatial):
-                out = self._sharded_forward()(torch.from_numpy(image))
+                out = self._sharded_forward()(image)
             else:
                 out = predict_segmentation_mask(
                     self.apply_fn,
@@ -171,11 +181,12 @@ class Segmenter:
                     self.tile_cfg,
                     use_probability_map=self.use_probability_map,
                     postprocess=self.postprocess,
-                    device=self.device,
+                    # the tensor's own device ("cuda:0", not "cuda"): there is
+                    # nothing left to move, so no second upload span opens
+                    device=image.device,
                 )
             with span("hcunet.serve.readback"):
-                out = out[0, ..., 0].cpu().numpy()
-            return out[: spatial[0], : spatial[1], : spatial[2]]
+                return out[0, : spatial[0], : spatial[1], : spatial[2], 0].cpu().numpy()
 
     def _sharded_forward(self):
         """Build (once) the multi-device tiled forward for this mesh, with

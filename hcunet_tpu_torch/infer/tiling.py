@@ -186,7 +186,8 @@ def predict_segmentation_mask(
     ``apply_fn`` maps a batch of tiles ``[B, tx, ty, tz, C]`` to logits of
     the model's valid output shape.  ``image`` is ``[1, X, Y, Z, C]``
     channels-last, numpy or tensor; it is moved to ``device`` (CUDA unless
-    given).  Returns ``[1, X, Y, Z, 1]`` on that device — float32
+    given) under the ``hcunet.tiling.upload`` span, which a float32 tensor
+    already there skips.  Returns ``[1, X, Y, Z, 1]`` on that device — float32
     probabilities when ``use_probability_map`` else uint8 {0,1}.
     ``postprocess=(sigma, floor, scale)`` adds the pipeline's
     blur/floor/rescale stage (only meaningful with ``use_probability_map``).
@@ -195,8 +196,10 @@ def predict_segmentation_mask(
         tile_cfg = TileConfig()
     if image.ndim != 5:
         raise ValueError(f"expected [1, X, Y, Z, C], got {tuple(image.shape)}")
-    with span("hcunet.tiling.upload"):
-        image = _as_image(image, device)
+    if not (isinstance(image, torch.Tensor) and image.dtype == torch.float32
+            and image.device == resolve_device(device)):
+        with span("hcunet.tiling.upload"):
+            image = _as_image(image, device)
 
     spatial = tuple(image.shape[1:-1])
     eval_size = tuple(min(e, s) for e, s in zip(tile_cfg.eval_size, spatial))

@@ -201,12 +201,12 @@ def test_port_sharded_tile_config_divides_slab(unet):
 
 
 @pytest.mark.parametrize("case", ["plain", "postprocess_packed"])
-def test_port_segmenter_mesh_matches_single_device(unet, spatial8, case):
+def test_port_segmenter_mesh_matches_single_device(unet, spatial8, case, monkeypatch):
     """``Segmenter(mesh=)`` equals the single-device ``Segmenter`` voxel for
-    voxel on a volume bucket-padded to the shard quantum (8 × 16), and the
-    JAX ``Segmenter(mesh=)``: the model's plain forward, and the packed
-    serving forward with the blur/floor/rescale epilogue (run on the
-    gathered volume)."""
+    voxel on a volume bucket-padded to the shard quantum (8 × 16), both
+    padding on the device (no ``np.pad``), and the JAX ``Segmenter(mesh=)``:
+    the model's plain forward, and the packed serving forward with the
+    blur/floor/rescale epilogue (run on the gathered volume)."""
     cfg, jmodel, variables, model = unet
     port_mesh, jax_mesh = spatial8
     kw = (dict(packed=False) if case == "plain"
@@ -216,11 +216,15 @@ def test_port_segmenter_mesh_matches_single_device(unet, spatial8, case):
     seg8 = Segmenter(model, tile_cfg=TileConfig(**TILES), mesh=port_mesh, **kw)
     assert seg8.device == torch.device("cpu")
     assert seg8.bucket_shape(vol.shape[:-1])[0] % (8 * 16) == 0
-    got = seg8.predict(vol)
-    np.testing.assert_array_equal(got, seg1.predict(vol))
+    # Y 40 -> 48: both Segmenters pad to the bucket on the device
+    assert seg8.bucket_shape(vol.shape[:-1]) == seg1.bucket_shape(vol.shape[:-1]) == (128, 48, 8)
     thin = vol[:100]  # below 8 tile columns: the single-device engine
     assert not seg8._use_sharded(thin.shape[:-1])
-    np.testing.assert_array_equal(seg8.predict(thin), seg1.predict(thin))
+    with monkeypatch.context() as m:
+        m.setattr(np, "pad", lambda *a, **k: pytest.fail("np.pad called"))
+        got = seg8.predict(vol)
+        np.testing.assert_array_equal(got, seg1.predict(vol))
+        np.testing.assert_array_equal(seg8.predict(thin), seg1.predict(thin))
 
     jkw = dict(packed=False) if case == "plain" else dict(postprocess=(3.0, 0.25, 10.0))
     jseg = JaxSegmenter(jmodel, variables, JaxTileConfig(**TILES), mesh=jax_mesh, **jkw)

@@ -75,10 +75,10 @@ def test_span_enters_no_record_function_without_a_profiler(segmenter, recurrent,
 
 
 def test_segmenter_predict_spans(segmenter):
-    """A bucket-padded ``predict`` under the profiler: the bucket pad, the
-    upload, the tiles and the read-back, in that order, inside
-    ``hcunet.serve.predict`` on one thread, and the same mask as without
-    the profiler."""
+    """A bucket-padded ``predict`` under the profiler: the upload of the
+    unpadded volume, the bucket pad on the device, the tiles and the
+    read-back, in that order, inside ``hcunet.serve.predict`` on one
+    thread, and the same mask as without the profiler."""
     vol = _volume()
     want = segmenter.predict(vol)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -86,7 +86,7 @@ def test_segmenter_predict_spans(segmenter):
     np.testing.assert_array_equal(got, want)
     spans = _spans(prof)
     assert [s[0] for s in spans] == [
-        "hcunet.serve.predict", "hcunet.serve.bucket_pad", "hcunet.tiling.upload",
+        "hcunet.serve.predict", "hcunet.tiling.upload", "hcunet.serve.bucket_pad",
         "hcunet.tiling.tiles", "hcunet.serve.readback",
     ]
     assert all(_inside(s, spans[0]) for s in spans[1:])

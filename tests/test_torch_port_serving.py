@@ -2,6 +2,8 @@
 numpy volume and weights, through shape bucketing, the BN-folded forward
 and the epilogue.  Tolerances as in ``test_torch_port_tiling.py``."""
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ from hcunet_tpu.config import TileConfig as JaxTileConfig
 from hcunet_tpu.infer.serving import Segmenter as JaxSegmenter
 from hcunet_tpu_torch.config import TileConfig
 from hcunet_tpu_torch.infer.serving import Segmenter
+from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
 from tests.torch_port_support import SMALL, jax_unet, port_unet
 
 TILE = dict(eval_size=(16, 24, 8), pad=(16, 16, 2), batch=4)
@@ -78,3 +81,65 @@ def test_segmenter_warmup_and_state_dict_weights(unet):
     ref = Segmenter(model, tile_cfg=TileConfig(**TILE), device="cpu")
     vol = np.random.default_rng(5).random((20, 30, 9, 4), dtype=np.float32)
     np.testing.assert_array_equal(seg.predict(vol), ref.predict(vol))
+
+
+def _host_pad_recipe(seg, vol, bucket):
+    """What ``Segmenter.predict`` computed before it padded on the device:
+    ``np.pad`` to the bucket with one mode for every axis, the tiled forward
+    on the bucket, the map cropped on the host.  Returns the map and the
+    mode."""
+    spatial = vol.shape[:-1]
+    mode = "symmetric" if all(b - s <= s for s, b in zip(spatial, bucket)) else "edge"
+    padded = np.pad(vol, [(0, b - s) for s, b in zip(spatial, bucket)] + [(0, 0)], mode=mode)
+    out = predict_segmentation_mask(
+        seg.apply_fn, np.asarray(padded[None], np.float32), seg.cfg, seg.tile_cfg,
+        use_probability_map=seg.use_probability_map, postprocess=seg.postprocess, device="cpu",
+    )[0, ..., 0].numpy()
+    return out[: spatial[0], : spatial[1], : spatial[2]], mode
+
+
+# (40, 50, 9) buckets to (48, 72, 16), every pad within its axis; no volume
+# reaches a pad wider than its axis through ``bucket_shape`` (a pad is under
+# one core, which is under the axis), so the edge case hands the Segmenter a
+# deeper bucket, Z 9 -> 24
+PAD_CASES = {"symmetric": None, "edge": (48, 72, 24)}
+
+
+@pytest.mark.parametrize("probability", [True, False], ids=["probability", "mask"])
+@pytest.mark.parametrize("mode", sorted(PAD_CASES))
+def test_segmenter_device_pad_matches_host_pad(unet, mode, probability, monkeypatch):
+    """The pad to the bucket on the device, and the crop there, give the same
+    bits as the host ``np.pad`` recipe, in both pad modes, and ``np.pad`` is
+    never called."""
+    cfg, _, variables = unet
+    seg = Segmenter(port_unet(cfg, variables), tile_cfg=TileConfig(**TILE),
+                    use_probability_map=probability, device="cpu")
+    if PAD_CASES[mode] is not None:
+        seg.bucket_shape = lambda spatial: PAD_CASES[mode]
+    vol = np.random.default_rng(6).random((40, 50, 9, 4), dtype=np.float32)
+    want, want_mode = _host_pad_recipe(seg, vol, seg.bucket_shape(vol.shape[:-1]))
+    assert want_mode == mode
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("np.pad called")
+
+    monkeypatch.setattr(np, "pad", refuse)
+    got = seg.predict(vol)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_segmenter_float64_and_read_only_volumes(unet):
+    """A float64 volume gives the bits of its float32 rounding, and a
+    read-only one predicts without raising or warning."""
+    cfg, _, variables = unet
+    seg = Segmenter(port_unet(cfg, variables), tile_cfg=TileConfig(**TILE), device="cpu")
+    vol = np.random.default_rng(8).random((40, 50, 9, 4))
+    want = seg.predict(vol.astype(np.float32))
+    np.testing.assert_array_equal(seg.predict(vol), want)
+    frozen = vol.astype(np.float32)
+    frozen.flags.writeable = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = seg.predict(frozen)
+    np.testing.assert_array_equal(got, want)
