@@ -17,7 +17,9 @@ CUDA stream and returns without copying results back; the detector's NMS
 steps read one convergence flag each from the card.
 :func:`collect_cell_candidates` copies the results to the host (where it
 waits for the card) and merges them.  :class:`ShardedDetect` splits the
-z-plane batch over every device of a mesh.
+z-plane batch over every device of a mesh.  In a profiler's trace the
+dispatch is one ``hcunet.detect.tiles`` span and the collection one
+``hcunet.detect.merge`` span (each NMS inside a ``hcunet.detect.nms``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from hcunet_tpu_torch.config import resolve_device
 from hcunet_tpu_torch.core.precision import exact_float32
 from hcunet_tpu_torch.core.shapes import calculate_indexes
 from hcunet_tpu_torch.infer.candidates import empty_candidates, merge_cell_candidates
+from hcunet_tpu_torch.utils.profiling import span
 
 DET_PAD = (24, 24)
 # the JAX package's tile core; calculate_indexes cuts 1000 + 2*24 - 1 =
@@ -70,17 +73,18 @@ def dispatch_cell_candidates(
         y_ind = calculate_indexes(pad[1], eval_size[1], Y, Y)
 
     pending = []
-    for x0, x1 in x_ind:
-        for y0, y1 in y_ind:
-            tile = image[x0:x1, y0:y1, :, :3]  # [H, W, Z, 3]
-            if isinstance(tile, np.ndarray):
-                batch = torch.from_numpy(
-                    np.ascontiguousarray(np.moveaxis(tile, 2, 0), np.float32)
-                )
-            else:
-                batch = tile.movedim(2, 0).float()
-            out = detector.detect(batch)  # [Z, H, W, 3] planes as the batch
-            pending.append((x0, x1, y0, y1, Z, out))
+    with span("hcunet.detect.tiles"):
+        for x0, x1 in x_ind:
+            for y0, y1 in y_ind:
+                tile = image[x0:x1, y0:y1, :, :3]  # [H, W, Z, 3]
+                if isinstance(tile, np.ndarray):
+                    batch = torch.from_numpy(
+                        np.ascontiguousarray(np.moveaxis(tile, 2, 0), np.float32)
+                    )
+                else:
+                    batch = tile.movedim(2, 0).float()
+                out = detector.detect(batch)  # [Z, H, W, 3] planes as the batch
+                pending.append((x0, x1, y0, y1, Z, out))
     return pending
 
 
@@ -93,31 +97,32 @@ def collect_cell_candidates(
     """Copy the dispatched detections to the host and NMS-merge them into
     the global candidate list (``utils.merge_cell_candidates`` semantics)."""
     candidates = None
-    for x0, x1, y0, y1, Z, out in pending:
-        boxes = out["boxes"].cpu().numpy()  # [Z, K, 4] detector axes
-        scores = out["scores"].cpu().numpy()
-        labels = out["labels"].cpu().numpy()
-        valid = out["valid"].cpu().numpy() & (scores > score_floor)
+    with span("hcunet.detect.merge"):
+        for x0, x1, y0, y1, Z, out in pending:
+            boxes = out["boxes"].cpu().numpy()  # [Z, K, 4] detector axes
+            scores = out["scores"].cpu().numpy()
+            labels = out["labels"].cpu().numpy()
+            valid = out["valid"].cpu().numpy() & (scores > score_floor)
 
-        for z in range(Z):
-            v = valid[z]
-            if not v.any():
-                continue
-            det = boxes[z][v]
-            # detector (x=W=dim1, y=H=dim0) -> array axes (dim0, dim1)
-            arr_boxes = np.stack([det[:, 1], det[:, 0], det[:, 3], det[:, 2]], axis=1)
-            new = {
-                "boxes": arr_boxes.astype(np.float32),
-                "scores": scores[z][v].astype(np.float32),
-                "labels": labels[z][v].astype(np.int32),
-                "z_level": np.full(v.sum(), float(z), np.float32),
-            }
-            candidates = merge_cell_candidates(
-                candidates, new,
-                initial_coords=(x0 + initial_coords[0], y0 + initial_coords[1]),
-            )
-        if progress:
-            progress(f"detect tile [{x0}:{x1}, {y0}:{y1}]")
+            for z in range(Z):
+                v = valid[z]
+                if not v.any():
+                    continue
+                det = boxes[z][v]
+                # detector (x=W=dim1, y=H=dim0) -> array axes (dim0, dim1)
+                arr_boxes = np.stack([det[:, 1], det[:, 0], det[:, 3], det[:, 2]], axis=1)
+                new = {
+                    "boxes": arr_boxes.astype(np.float32),
+                    "scores": scores[z][v].astype(np.float32),
+                    "labels": labels[z][v].astype(np.int32),
+                    "z_level": np.full(v.sum(), float(z), np.float32),
+                }
+                candidates = merge_cell_candidates(
+                    candidates, new,
+                    initial_coords=(x0 + initial_coords[0], y0 + initial_coords[1]),
+                )
+            if progress:
+                progress(f"detect tile [{x0}:{x1}, {y0}:{y1}]")
     return candidates if candidates is not None else empty_candidates()
 
 

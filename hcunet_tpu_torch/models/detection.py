@@ -351,13 +351,22 @@ class Detector(FasterRCNN):
         """``images``: ``[B, H, W, 3]`` channels-last float (numpy or
         tensor), moved to the detector's device.  Returns a dict of
         ``[B, K, ...]`` tensors on that device."""
+        return self.detect_stages(images)["detections"]
+
+    @torch.no_grad()
+    def detect_stages(self, images) -> Dict[str, object]:
+        """:meth:`detect`'s work with each stage's output kept: ``pyramid``
+        (per level, NCHW), ``rpn`` (per level, the NCHW objectness logits
+        and box deltas), ``proposals`` ``[B, P, 4]`` and ``proposal_valid``
+        ``[B, P]``, the head's ``class_logits`` ``[B, P, C]`` and
+        ``box_deltas`` ``[B, P, 4C]``, and ``detections``, what
+        :meth:`detect` returns."""
         cfg = self.config
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(np.ascontiguousarray(images))
         images = images.to(device=self.device, dtype=self.dtype)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected [B, H, W, 3] images, got {tuple(images.shape)}")
-        B = images.shape[0]
         hw = tuple(images.shape[1:3])
         pyramid, rpn_out = self(images.permute(0, 3, 1, 2))
         feat_shapes = {lvl: tuple(pyramid[lvl].shape[-2:]) for lvl in LEVELS}
@@ -365,14 +374,33 @@ class Detector(FasterRCNN):
             feat_shapes, cfg.anchor_sizes, cfg.anchor_ratios, device=self.device
         )
         props, pvalid = self._proposals(rpn_out, anchors, hw)
-        n_prop = props.shape[1]
+        cls_logits, reg = self._head(pyramid, props)
+        return {
+            "pyramid": pyramid,
+            "rpn": rpn_out,
+            "proposals": props,
+            "proposal_valid": pvalid,
+            "class_logits": cls_logits,
+            "box_deltas": reg,
+            "detections": self._detections(props, pvalid, cls_logits, reg, hw),
+        }
+
+    def _head(self, pyramid, props):
+        """The RoI heads over the proposals ``[B, P, 4]``: class logits
+        ``[B, P, C]`` and per-class box deltas ``[B, P, 4C]``."""
+        B, n_prop = props.shape[:2]
         roi_feats = self._roi_features(pyramid, props)
         cls_logits, reg = self.roi_heads(
             roi_feats.reshape(B * n_prop, *roi_feats.shape[2:]).to(self.dtype)
         )
-        probs = torch.softmax(cls_logits.float(), dim=-1).reshape(B, n_prop, -1)
+        return cls_logits.reshape(B, n_prop, -1), reg.reshape(B, n_prop, -1)
 
-        # per-class decode + one NMS over all classes via a class offset
+    def _detections(self, props, pvalid, cls_logits, reg, hw):
+        """Per-class decode, the score and size rules, one NMS over all
+        classes via a class offset, and the top ``max_detections``."""
+        cfg = self.config
+        B, n_prop = props.shape[:2]
+        probs = torch.softmax(cls_logits.float(), dim=-1)
         n_cls = cfg.num_classes
         reg = reg.float().reshape(B, n_prop, n_cls, 4)
         boxes_c = clip_boxes(

@@ -11,7 +11,10 @@ it iterates the greedy rule as a fixed point over all boxes at once::
 Box i depends only on boxes before it, so after t steps the first t boxes are
 final and the fixed point is unique: it is the greedy keep set.  The loop
 stops at the first step that changes nothing, which is the length of the
-longest suppression chain plus one, not the number of boxes.
+longest suppression chain plus one, not the number of boxes.  Each step reads
+one flag back from the card; :data:`NMS_STEPS` counts the steps (its
+``launches``), and each call is a ``hcunet.detect.nms`` span in a profiler's
+trace.
 
 :func:`nms_indices_np` / :func:`nms_indices` are the host numpy NMS that
 merges tiled candidates, as in the JAX package.
@@ -21,6 +24,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hcunet_tpu_torch.csrc import LaunchCount
+from hcunet_tpu_torch.utils.profiling import span
+
+
+# raised by one at each step of nms_mask's fixed point, that is at each flag
+# it reads back from the card (the detector's replicas run NMS from threads
+# of their own)
+NMS_STEPS = LaunchCount(("fixed_point",))
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,26 +62,28 @@ def nms_mask(
     ``-inf`` (or whose ``valid`` is False) is never kept and suppresses
     nothing.  Each step of the fixed point costs one pass over the ``N x N``
     overlap matrix; the loop reads one flag back from the card per step."""
-    if valid is not None:
-        scores = torch.where(valid, scores, -torch.inf)
-    n = scores.shape[-1]
-    if n == 0:
-        return torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
-    order = torch.argsort(-scores, dim=-1, stable=True)
-    b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
-    s = torch.gather(scores, -1, order)
-    earlier = torch.ones(n, n, dtype=torch.bool, device=s.device).triu(1)
-    overlaps = (box_iou(b, b) > iou_threshold) & earlier  # [..., j, i]
-    finite = torch.isfinite(s)
-    keep = finite
-    while True:
-        suppressed = (overlaps & keep[..., :, None]).any(dim=-2)
-        new = finite & ~suppressed
-        if torch.equal(new, keep):
-            break
-        keep = new
-    # back to input order
-    return torch.zeros_like(keep).scatter_(-1, order, keep)
+    with span("hcunet.detect.nms"):
+        if valid is not None:
+            scores = torch.where(valid, scores, -torch.inf)
+        n = scores.shape[-1]
+        if n == 0:
+            return torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+        order = torch.argsort(-scores, dim=-1, stable=True)
+        b = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
+        s = torch.gather(scores, -1, order)
+        earlier = torch.ones(n, n, dtype=torch.bool, device=s.device).triu(1)
+        overlaps = (box_iou(b, b) > iou_threshold) & earlier  # [..., j, i]
+        finite = torch.isfinite(s)
+        keep = finite
+        while True:
+            suppressed = (overlaps & keep[..., :, None]).any(dim=-2)
+            new = finite & ~suppressed
+            NMS_STEPS.add("fixed_point")
+            if torch.equal(new, keep):
+                break
+            keep = new
+        # back to input order
+        return torch.zeros_like(keep).scatter_(-1, order, keep)
 
 
 def nms_indices_np(boxes, scores, iou_threshold=0.5):
