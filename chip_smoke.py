@@ -8,7 +8,7 @@ toolkit::
     python3 chip_smoke.py --phases k1     # build K1 and run phase 3 alone
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
-``slice1`` (5), ``subpixel`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
+``slice1`` (5), ``subpixel`` (6), ``tconv`` (6b), ``k2`` (7), ``slice2`` (8), ``blobs``
 (9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
 ``rtrain`` (14), ``dtrain`` (15), ``mesh`` (16), ``hcat`` (17) and ``bench``
 (18); phases 1, 2 (only the kernels the chosen phases launch) and 19 always
@@ -20,7 +20,8 @@ Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit) and turn TF32 off;
 2. build kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``), K2
-   (``csrc/edt_pass.cu``) and K3 (``csrc/dot_blocked.cu``) into ``build/``,
+   (``csrc/edt_pass.cu``), K3 (``csrc/dot_blocked.cu``) and the float32
+   transposed conv (``csrc/tconv3d_subpixel.cu``) into ``build/``,
    one ``nvcc`` each, all together, and the host flood
    (``csrc/watershed_host.cpp``) with ``g++`` beside them;
 3. hold K1 against its plain version at the 15 valid-conv shapes of the
@@ -44,8 +45,9 @@ Phases (any failure exits non-zero):
    at full width (random He-normal weights and random batch-norm statistics
    from a seed) for three requests, checking that every tile batch launched
    K1 15 times (in bfloat16 14 on the ring path, the 4-channel first conv
-   on the basic one), and that the float32 request agrees with a forward
-   built on the plain conv;
+   on the basic one) and, in float32, the transposed-conv kernel 3 times
+   (one per up level), and that the float32 request agrees with a forward
+   built on the plain conv and the plain transposed conv;
 6. the subpixel route of the transposed convs
    (``compile_serving_apply(subpixel_tconv=True)``: one K1 launch per up
    level with the four parity kernels stacked along Cout): K1 at the three
@@ -57,6 +59,15 @@ Phases (any failure exits non-zero):
    routes in turns,
    the subpixel one launching K1 18 times per tile batch (17 on the ring
    path: 3 more than the default route, one per up level);
+6b. the float32 transposed conv's own kernel
+   (``hcunet_tpu_torch/csrc/tconv3d_subpixel.cu``, built with ``-Xptxas
+   -v`` once more to print its registers and spills) at the three up
+   levels of one tile batch, into the concat buffer, against its plain
+   version, timed with CUDA events beside its bound (the transposed
+   conv's operations at 67 TFLOP/s; and that of every tap of the stacked
+   parity convs, the zero padding's too), the plain version, K1's subpixel
+   route (pad, one K1 launch, interleave) and cuDNN's ``conv_transpose3d``,
+   with the sums over the three levels;
 7. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
    1212^2 x 8, and a ragged shape, on a random mask, and at the first two
@@ -493,12 +504,42 @@ def check_k1_routes(route_launches, batches, dtype) -> None:
         raise AssertionError(f"K1 routes {route_launches}, expected {want}")
 
 
+def check_tconv(label, launches, batches, dtype) -> None:
+    """The transposed convs of ``batches`` tile batches of the serving
+    forward: in float32 3 launches of their own kernel a tile batch (one per
+    up level), in bfloat16 none (cuDNN's)."""
+    want = 3 * batches if dtype == torch.float32 else 0
+    if launches != want:
+        raise AssertionError(f"{label}: the transposed-conv kernel launched {launches} times, "
+                             f"expected {want}")
+
+
+@contextlib.contextmanager
+def plain_tconv():
+    """The serving forward's float32 transposed convs on their plain version
+    (``tconv3d_subpixel_plain``: cuDNN's ``conv_transpose3d`` into the concat
+    buffer), for the parity runs: no launch of their kernel."""
+    import hcunet_tpu_torch.infer.compile as compile_mod
+    from hcunet_tpu_torch.ops.tconv import tconv3d_subpixel_plain
+
+    kernel = compile_mod.tconv3d_subpixel
+    compile_mod.tconv3d_subpixel = tconv3d_subpixel_plain
+    try:
+        yield
+    finally:
+        compile_mod.tconv3d_subpixel = kernel
+
+
 def run_request(seg, vol, kernel) -> tuple[np.ndarray, float, int, int]:
-    """One ``predict`` with the launch count set to 0 just before it.
-    Returns the probabilities, seconds, launches and peak device bytes."""
+    """One ``predict`` with the launch count set to 0 just before it, K1's
+    and the transposed-conv kernel's launches checked.  Returns the
+    probabilities, seconds, K1's launches and peak device bytes."""
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts([kernel])
+    tconv0 = TCONV3D_SUBPIXEL.launches
     t0 = time.perf_counter()
     out = seg.predict(vol)
     sec = time.perf_counter() - t0
@@ -509,6 +550,8 @@ def run_request(seg, vol, kernel) -> tuple[np.ndarray, float, int, int]:
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times, expected {want}")
     check_k1_routes(kernel.route_launches, batches, seg.model.dtype)
+    check_tconv(f"request {tuple(vol.shape)}", TCONV3D_SUBPIXEL.launches - tconv0, batches,
+                seg.model.dtype)
     if out.shape != vol.shape[:-1] or not np.isfinite(out).all():
         raise AssertionError(f"bad output {out.shape} for {vol.shape}")
     if out.min() < 0 or out.max() > 1:
@@ -1207,13 +1250,15 @@ def k1_phase(layers, gen, dev) -> list:
 
 
 def slice1_phase(model, seg, dev, kernel) -> int:
-    """Phase 5: three bf16 requests and a float32 one through K1, the
-    float32 one against a forward on the plain conv.  Returns K1's
+    """Phase 5: three bf16 requests and a float32 one through K1 (and, in
+    float32, the transposed-conv kernel), the float32 one against a forward
+    on the plain conv and the plain transposed conv.  Returns K1's
     launches."""
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.infer.serving import Segmenter
     from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
     from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
 
     cfg, tile_cfg = model.config, seg.tile_cfg
     rng = np.random.default_rng(SEED)
@@ -1238,13 +1283,18 @@ def slice1_phase(model, seg, dev, kernel) -> int:
     plain_apply = compile_serving_apply(
         seg32.model, dtype=torch.float32, device=dev, conv=conv3d_valid_plain
     )
-    p_p = predict_segmentation_mask(
-        plain_apply, vols[0][None], cfg, tile_cfg, use_probability_map=True,
-        device=dev,
-    )[0, ..., 0].cpu().numpy()
+    tconv0 = TCONV3D_SUBPIXEL.launches
+    with plain_tconv():
+        p_p = predict_segmentation_mask(
+            plain_apply, vols[0][None], cfg, tile_cfg, use_probability_map=True,
+            device=dev,
+        )[0, ..., 0].cpu().numpy()
+    if TCONV3D_SUBPIXEL.launches != tconv0:
+        raise AssertionError("the plain path launched the transposed-conv kernel")
     d32 = float(np.abs(p_k - p_p).max())
     print(
-        f"float32 request {REQUESTS[0]}: K1 path vs plain path max |dp| {d32:.3e} "
+        f"float32 request {REQUESTS[0]}: K1 path (K1 and the transposed-conv kernel) vs plain "
+        f"path (the plain conv and cuDNN's conv_transpose3d) max |dp| {d32:.3e} "
         f"(tolerance 1e-4); K1 path {sec:.3f} s; bf16 vs float32 max |dp| "
         f"{float(np.abs(p_bf16 - p_k).max()):.3e}"
     )
@@ -1835,6 +1885,119 @@ def subpixel_phase(model, dev, kernel) -> tuple:
     return rows, path_launches
 
 
+def ptxas_report(source: str) -> str:
+    """``nvcc -Xptxas -v``'s lines on ``csrc/<source>`` (registers, shared
+    memory and spills of each kernel), from a build into a scratch file."""
+    from hcunet_tpu_torch.csrc import CSRC_DIR, NVCC_FLAGS, nvcc_path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "lib.so"),
+             str(CSRC_DIR / source)], capture_output=True, text=True, check=True)
+    return "\n".join(line for line in proc.stderr.splitlines()
+                     if re.search(r"registers|spill|Compiling entry", line))
+
+
+def tconv_phase(model, dev) -> list:
+    """The float32 transposed conv's own kernel (``ops/tconv.py::
+    tconv3d_subpixel``) at the three up levels of one tile batch, each into
+    a concat buffer of the transposed conv's extent (the up levels' common
+    extent at the production tile): held to its plain version at K1's
+    float32 tolerance, then timed with CUDA events in turns (kernel, plain,
+    K1's subpixel route, cuDNN's ``conv_transpose3d``, and back) beside
+    its bound, the transposed conv's operations (``2 B X Y Z kx ky kz Cin
+    Cout``) over the float32 peak, and beside ``padded_bound_ms``, the same
+    for every tap of the stacked parity convs, the zero padding's too (as
+    K1's subpixel rows count them), which the kernel computes.  Returns the
+    rows."""
+    from hcunet_tpu_torch.infer.compile import tconv_subpixel
+    from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.ops.conv import conv_transpose_torch
+    from hcunet_tpu_torch.ops.tconv import (
+        TCONV3D_SUBPIXEL,
+        tconv3d_subpixel,
+        tconv3d_subpixel_extent,
+        tconv3d_subpixel_plain,
+    )
+
+    t0 = time.perf_counter()
+    print(f"tconv3d_subpixel, -Xptxas -v:\n{ptxas_report('tconv3d_subpixel.cu')}", flush=True)
+    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
+    parity = record_parity_convs(seg.model, seg.tile_cfg, dev)
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    print(f"float32 transposed convs of one tile batch of {seg.tile_cfg}: kernel vs plain, "
+          "K1's subpixel route and cuDNN, in turns:", flush=True)
+    for name, x, w_up, b_up, w_sub, b_sub, stride in tconv_levels(
+            seg.model, parity, gen_dev, torch.float32):
+        cout = w_up.shape[-1]
+        out = torch.empty((x.shape[0], *tconv3d_subpixel_extent(x.shape, w_sub.shape), 2 * cout),
+                          device=dev)
+        want = torch.empty_like(out)
+        before = TCONV3D_SUBPIXEL.launches
+        tconv3d_subpixel(x, w_sub, b_sub, out)
+        tconv3d_subpixel_plain(x, w_sub, b_sub, want)
+        torch.cuda.synchronize()
+        if TCONV3D_SUBPIXEL.launches != before + 1:
+            raise AssertionError(f"{name}: the kernel launched {TCONV3D_SUBPIXEL.launches - before}"
+                                 " times, expected 1")
+        err, tol = kernel_error(out[..., :cout], want[..., :cout])
+        del want
+        fns = {
+            "kernel": lambda: tconv3d_subpixel(x, w_sub, b_sub, out),
+            "plain": lambda: tconv3d_subpixel_plain(x, w_sub, b_sub, out),
+            "k1_route": lambda: tconv_subpixel(x, w_sub, b_sub),
+            "cudnn": lambda: conv_transpose_torch(x, w_up, b_up, stride=stride,
+                                                  accum_dtype=torch.float32),
+        }
+        order = list(fns) + list(fns)[::-1]
+        ms = {k: 0.0 for k in fns}
+        for k in order:
+            ms[k] += cuda_ms(fns[k]) / 2
+        hx, hy, kz = w_sub.shape[:3]
+        B, X, Y, Z, cin = x.shape
+        flops = 2.0 * B * X * Y * Z * (2 * hx) * (2 * hy) * kz * cin * cout
+        padded = 2.0 * B * (X + hx - 1) * (Y + hy - 1) * (Z + kz - 1) * 4 * cout * hx * hy * kz * cin
+        bound = flops / H100_F32_FLOPS * 1e3
+        row = {
+            "name": f"tconv3d_subpixel[{name},f32]",
+            "route": "cuda",
+            "source": "hcunet_tpu_torch/csrc/tconv3d_subpixel.cu",
+            "replaces": None,
+            "launches": None,
+            "max_abs_err": err,
+            "ms": ms["kernel"],
+            "plain_ms": ms["plain"],
+            "bound_ms": bound,
+            "bound_by": "operations",
+            "padded_bound_ms": padded / H100_F32_FLOPS * 1e3,
+            "library_ms": ms["cudnn"],
+            "k1_route_ms": ms["k1_route"],
+        }
+        print(f"  {row['name']:32s} x{list(x.shape)} -> out{list(out.shape)} err {err:.3e} "
+              f"(tol {tol:.3e}) kernel {ms['kernel']:8.3f} ms plain {ms['plain']:8.3f} ms "
+              f"K1 route {ms['k1_route']:8.3f} ms cuDNN {ms['cudnn']:8.3f} ms bound "
+              f"{bound:7.3f} ms ({flops / ms['kernel'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound / ms['kernel']:.1f}% of the peak; every padded tap "
+              f"{row['padded_bound_ms']:7.3f} ms, {100 * padded / flops - 100:.1f}% more)",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{row['name']}: max error {err} > tolerance {tol}")
+        rows.append(row)
+        del x, out
+        torch.cuda.empty_cache()
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "k1_route_ms", "library_ms",
+                                                 "bound_ms", "padded_bound_ms")}
+    print(f"float32 transposed convs, 3 up levels of one tile batch: kernel {tot['ms']:.3f} ms, "
+          f"plain {tot['plain_ms']:.3f} ms, K1's subpixel route {tot['k1_route_ms']:.3f} ms, "
+          f"cuDNN conv_transpose3d {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"(kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}% of the float32 peak; "
+          f"{100 * tot['padded_bound_ms'] / tot['ms']:.1f}% counting every padded tap, bound "
+          f"{tot['padded_bound_ms']:.3f} ms); tconv phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 def save_unet_and_detector(model, det, root) -> tuple:
     """``model`` and ``det`` as checkpoints in the JAX package's format,
     written by the port: ``(unet path, detector path)``."""
@@ -1982,6 +2145,7 @@ def cli_phase(model, dev, kernel, keep=None) -> int:
     from hcunet_tpu_torch.cli import _load_models
     from hcunet_tpu_torch.config import TileConfig
     from hcunet_tpu_torch.infer.pipeline import _load_volume
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
     from hcunet_tpu_torch.utils.checkpoint import load_unet
 
     t_phase = time.perf_counter()
@@ -2002,22 +2166,25 @@ def cli_phase(model, dev, kernel, keep=None) -> int:
         out = os.path.join(root, "cli_out")
         torch.cuda.synchronize()
         reset_counts([kernel])
+        tconv0 = TCONV3D_SUBPIXEL.launches
         t0 = time.perf_counter()
         info = cli_main(["analyze", vol_path, "--unet", unet_path, "--detector", det_path,
                          "--numchunks", "2", "--no-cochlea", "--out", out])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         launches, routes = kernel.launches, dict(kernel.route_launches)
+        tconv = TCONV3D_SUBPIXEL.launches - tconv0
         marks.append(("cli analyze", time.perf_counter()))
         vol = _load_volume(vol_path)
         tiles = TileConfig()
         batches = unet_tile_batches(vol.shape[:3], tiles)
         want = {"basic": 15 * batches, "ring": 0}
         print(f"cli analyze {CLI_SCENE} (float32, numchunks 2 = one chunk, {tiles}): "
-              f"{cli_s:.3f} s, {info}, K1 {launches} launches {routes} (expected {want})",
-              flush=True)
+              f"{cli_s:.3f} s, {info}, K1 {launches} launches {routes} (expected {want}), "
+              f"the transposed-conv kernel {tconv} (expected {3 * batches})", flush=True)
         if routes != want or launches != 15 * batches:
             raise AssertionError(f"cli analyze launched K1 {routes}, expected {want}")
+        check_tconv("cli analyze", tconv, batches, torch.float32)
 
         # the same through analyze() directly, on the same models
         umodel, apply, detector = _load_models(unet_path, det_path, dev)
@@ -3430,6 +3597,7 @@ def mesh_serving(model, dev, card, kernel) -> int:
     ``MESH_REQUEST`` volume, bf16 and float32.  Returns K1's launches in
     the mesh requests."""
     from hcunet_tpu_torch.infer.serving import Segmenter
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
     from hcunet_tpu_torch.parallel.mesh import SPATIAL_AXIS, make_mesh
 
     mesh = make_mesh({SPATIAL_AXIS: 2}, mesh_devices(2))
@@ -3443,18 +3611,22 @@ def mesh_serving(model, dev, card, kernel) -> int:
         segm.predict(vol)  # warm both
         want, s1 = timed(lambda: seg1.predict(vol))
         reset_counts([kernel])
+        tconv0 = TCONV3D_SUBPIXEL.launches
         got, sm = timed(lambda: segm.predict(vol))
         n, routes = kernel.launches, dict(kernel.route_launches)
+        tconv = TCONV3D_SUBPIXEL.launches - tconv0
         batches = sharded_tile_batches(segm, vol.shape[:-1])
         gap, equal = share_gap(got, want)
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
         print(f"mesh serving {MESH_REQUEST} {dt} ({card}): spatial 2 {1e3 * sm:.1f} ms a request,"
               f" one device {1e3 * s1:.1f} ms; bucket {segm.bucket_shape(MESH_REQUEST)}; "
               f"|mesh - single| / scale {gap:.3e} (gate {tol:g}), bit-equal {equal}; K1 {n} "
-              f"launches {routes} = 15 x {batches} tile batches over the shards", flush=True)
+              f"launches {routes} = 15 x {batches} tile batches over the shards, the "
+              f"transposed-conv kernel {tconv}", flush=True)
         if n != 15 * batches:
             raise AssertionError(f"mesh serving launched K1 {n} times, expected {15 * batches}")
         check_k1_routes(routes, batches, dtype)
+        check_tconv(f"mesh serving {dt}", tconv, batches, dtype)
         if not gap <= tol:
             raise AssertionError(f"mesh serving {dt} parts from one device by {gap:.3e}")
         launches += n
@@ -4082,18 +4254,19 @@ def bench_phase(dev, kernel) -> int:
 PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
-    "slice1": ("K1",),
+    "slice1": ("K1", "TCONV"),
     "subpixel": ("K1",),
+    "tconv": ("K1", "TCONV"),
     "k2": ("K2",),
     "slice2": ("K1", "K2"),
     "blobs": ("K2",),
     "train": ("K1",),
     "slice3": ("K1", "K2", "host"),
-    "cli": ("K1", "host"),
+    "cli": ("K1", "host", "TCONV"),
     "recurrent": ("K1",),
     "rtrain": ("K1",),
-    "dtrain": (),
-    "mesh": ("K1",),
+    "dtrain": ("TCONV",),
+    "mesh": ("K1", "TCONV"),
     "hcat": ("K1",),
     "bench": ("K1",),
 }
@@ -4133,6 +4306,7 @@ def main(argv=None) -> int:
     from hcunet_tpu_torch.ops.conv import CONV3D_VALID, CONV3D_VALID_INPUT_GRAD
     from hcunet_tpu_torch.ops.distance import EDT_PASS
     from hcunet_tpu_torch.ops.dot import DOT_BLOCKED
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
     from hcunet_tpu_torch.ops.watershed import WATERSHED_HOST
 
     t_start = time.perf_counter()
@@ -4152,14 +4326,15 @@ def main(argv=None) -> int:
     # phase 2: build the kernels the phases launch, one nvcc each, and the
     # host flood with g++, all together
     kernels = {"K1": CONV3D_VALID, "K2": EDT_PASS, "K3": DOT_BLOCKED}
+    builds = {**kernels, "TCONV": TCONV3D_SUBPIXEL}
     needed = {k for p in phases for k in PHASES[p]}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
         host = pool.submit(WATERSHED_HOST.load) if "host" in needed else None
-        build_all(k for name, k in kernels.items() if name in needed)
+        build_all(k for name, k in builds.items() if name in needed)
         if host is not None:
             host.result()
-    built = [f"{name} {k.build_seconds:.1f} s" for name, k in kernels.items() if name in needed]
+    built = [f"{name} {k.build_seconds:.1f} s" for name, k in builds.items() if name in needed]
     if host is not None:
         built.append(f"host flood {WATERSHED_HOST.build_seconds:.1f} s")
     print(f"built by nvcc for sm_90a (the host flood by g++) in "
@@ -4174,21 +4349,30 @@ def main(argv=None) -> int:
     rows, k2_rows, k3_rows = [], [], []
     total = 0
     counts = counts3 = dict.fromkeys(kernels, 0)
+    # the transposed-conv kernel's launches in each phase, its count set to
+    # 0 at the phase's start
+    tconv_by_phase = {}
+    reset_counts([TCONV3D_SUBPIXEL])
+
+    def phase_done(phase, label):
+        marks.append((label, time.perf_counter()))
+        tconv_by_phase[phase] = TCONV3D_SUBPIXEL.launches
+        reset_counts([TCONV3D_SUBPIXEL])
 
     layers = record_layers(seg.model, seg.tile_cfg, dev) if {"k1", "k3"} & set(phases) else []
     # phase 3: K1 against its plain version at the main path's shapes
     if "k1" in phases:
         rows = k1_phase(layers, gen, dev)
-        marks.append(("K1 checks", time.perf_counter()))
+        phase_done("k1", "K1 checks")
     # phase 4: K3 against its plain version, and beside K1
     if "k3" in phases:
         k3_rows = dot_phase([gemm_shape(x_shape, w) for x_shape, w, _b, _r in layers], rows, dev)
-        marks.append(("K3 checks", time.perf_counter()))
+        phase_done("k3", "K3 checks")
     del layers
     # phase 5: slice 1's path
     if "slice1" in phases:
         total = slice1_phase(model, seg, dev, CONV3D_VALID)
-        marks.append(("slice 1", time.perf_counter()))
+        phase_done("slice1", "slice 1")
     del seg
     torch.cuda.empty_cache()
     # phase 6: the subpixel route of the transposed convs through K1
@@ -4197,48 +4381,53 @@ def main(argv=None) -> int:
         sub_rows, sub_launches = subpixel_phase(model, dev, CONV3D_VALID)
         rows += sub_rows
         torch.cuda.empty_cache()
-        marks.append(("subpixel", time.perf_counter()))
+        phase_done("subpixel", "subpixel")
+    # phase 6b: the float32 transposed conv's own kernel
+    tconv_rows = []
+    if "tconv" in phases:
+        tconv_rows = tconv_phase(model, dev)
+        phase_done("tconv", "tconv")
     # phase 7: K2 against its plain version at the main path's shapes
     if "k2" in phases:
         print("K2 vs plain (exact), axes (0, 1):")
         for shape, kind in [(shape, "random") for shape in EDT_SHAPES] + EDT_STRESS:
             k2_rows.append(check_edt(shape, dev, kind))
             torch.cuda.empty_cache()
-        marks.append(("K2 checks", time.perf_counter()))
+        phase_done("k2", "K2 checks")
     # phase 8: slice 2's path on the bench scene
     if "slice2" in phases:
         counts = slice2_phase(model, dev, kernels)
         torch.cuda.empty_cache()
-        marks.append(("slice 2", time.perf_counter()))
+        phase_done("slice2", "slice 2")
     # phase 9: the instance stage with K2 against the plain EDT
     if "blobs" in phases:
         check_instance_stage(dev)
         torch.cuda.empty_cache()
-        marks.append(("instance blobs", time.perf_counter()))
+        phase_done("blobs", "instance blobs")
     # phase 10: training, and the fitted weights for slice 3 and the command line
     grad_rows = []
     train_counts = {"forward": 0, "input_grad": 0}
     if "train" in phases:
         model, train_counts, grad_rows = train_phase(dev)
         torch.cuda.empty_cache()
-        marks.append(("train", time.perf_counter()))
+        phase_done("train", "train")
     # phase 11: slice 3's path, analyze on the pipeline scene
     if "slice3" in phases:
         counts3 = analyze_phase(model, dev, kernels)
-        marks.append(("slice 3", time.perf_counter()))
+        phase_done("slice3", "slice 3")
     # phase 12: the user entry points (command line, batch, facade)
     cli_launches = 0
     cli_analyze = {}
     if "cli" in phases:
         cli_launches = cli_phase(model, dev, CONV3D_VALID, keep=cli_analyze)
-        marks.append(("cli", time.perf_counter()))
+        phase_done("cli", "cli")
     # phase 13: the recurrent family's serving
     rec_launches = 0
     if "recurrent" in phases:
         rec_rows, rec_launches = recurrent_phase(dev, CONV3D_VALID)
         rows += rec_rows
         torch.cuda.empty_cache()
-        marks.append(("recurrent", time.perf_counter()))
+        phase_done("recurrent", "recurrent")
 
     # phase 14: recurrent training
     rtrain_rows = []
@@ -4246,40 +4435,46 @@ def main(argv=None) -> int:
     if "rtrain" in phases:
         rtrain_rows, rtrain_counts = rtrain_phase(dev, (CONV3D_VALID, CONV3D_VALID_INPUT_GRAD))
         torch.cuda.empty_cache()
-        marks.append(("rtrain", time.perf_counter()))
+        phase_done("rtrain", "rtrain")
     # phase 15: detection training (no kernel on its path)
     if "dtrain" in phases:
         dtrain_phase(model, dev)
         torch.cuda.empty_cache()
-        marks.append(("dtrain", time.perf_counter()))
+        phase_done("dtrain", "dtrain")
     # phase 16: the multi-device paths over a mesh of the card(s)
     mesh_counts = {"forward": 0, "input_grad": 0}
     if "mesh" in phases:
         mesh_counts = mesh_phase(model, dev, (CONV3D_VALID, CONV3D_VALID_INPUT_GRAD),
                                  cli_analyze)
         torch.cuda.empty_cache()
-        marks.append(("mesh", time.perf_counter()))
+        phase_done("mesh", "mesh")
     # phase 17: the reference's driver surface (hcunet_tpu_torch.hcat)
     hcat_launches = 0
     if "hcat" in phases:
         hcat_launches = hcat_phase(dev, CONV3D_VALID)
         torch.cuda.empty_cache()
-        marks.append(("hcat", time.perf_counter()))
+        phase_done("hcat", "hcat")
 
     # phase 18: the benchmark module (the bench command line and metrics)
     bench_launches = 0
     if "bench" in phases:
         bench_launches = bench_phase(dev, CONV3D_VALID)
         torch.cuda.empty_cache()
-        marks.append(("bench", time.perf_counter()))
+        phase_done("bench", "bench")
 
     # phase 19: results.  A kernel's launches are those of the whole main
     # path (slices 1-3, the subpixel route, training, the command line, the
-    # recurrent family's serving and training, the mesh paths, the hcat
-    # driver surface and the in-process bench metric):
+    # recurrent family's serving and training, detection training's
+    # analyze, the mesh paths, the hcat driver surface and the in-process
+    # bench metric), not of the check phases:
     # a run of fewer phases gives none, and ends with a line that says which
     # phases ran in place of the result line.
     full = phases == list(PHASES)
+    tconv_paths = {p: tconv_by_phase.get(p, 0) for p in PHASES
+                   if p not in ("k1", "k3", "tconv", "k2", "blobs")}
+    for row in tconv_rows:
+        row["launches"] = sum(tconv_paths.values()) if full else None
+        row["launches_by_path"] = tconv_paths if full else None
     for kernel_rows, name in ((rows, "K1"), (k2_rows, "K2"), (k3_rows, "K3")):
         k1 = name == "K1"
         by_path = {"slice1": total if k1 else 0, "subpixel": sub_launches if k1 else 0,
@@ -4314,12 +4509,16 @@ def main(argv=None) -> int:
                      f"{mesh_counts['input_grad']} K1 input-gradient",
              "hcat": f"the hcat driver surface {hcat_launches} K1",
              "bench": f"the in-process bench pipeline metric {bench_launches} K1"}
+    tconv_ran = {p: n for p, n in tconv_paths.items() if p in phases}
     print(
         "main path launches: " + ("; ".join(v for k, v in paths.items() if k in phases) or "none")
+        + "; the float32 transposed-conv kernel "
+        + (", ".join(f"{p} {n}" for p, n in tconv_ran.items()) or "none")
         + f"; total {time.perf_counter() - t_start:.1f} s; phase seconds "
-        + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:]))
+        + ", ".join(f"{name} {t - t0:.1f}" for (_n, t0), (name, t) in zip(marks, marks[1:])),
+        flush=True,
     )
-    rows += grad_rows + rtrain_rows + k2_rows + k3_rows
+    rows += grad_rows + rtrain_rows + k2_rows + k3_rows + tconv_rows
     print(json.dumps({"kernels": rows}))
     print(card)
     device = {

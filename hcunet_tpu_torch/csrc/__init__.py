@@ -151,11 +151,12 @@ class LaunchCount:
         # data replicas launch from threads of their own
         self._lock = threading.Lock()
 
-    def add(self, route: str) -> None:
-        """One launch, on the path ``route``."""
+    def add(self, route: str | None = None) -> None:
+        """One launch, on the path ``route`` (None for a kernel of one path)."""
         with self._lock:
             self.launches += 1
-            self.route_launches[route] += 1
+            if route is not None:
+                self.route_launches[route] += 1
 
 
 class CudaKernel(LaunchCount):

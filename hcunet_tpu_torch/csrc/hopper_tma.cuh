@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks beside hopper_mma.cuh, kept apart so that
 // a kernel which does not include this file (K1) is not rebuilt when it
-// changes: mbarriers, TMA tile loads (cp.async.bulk.tensor) that complete on
-// an mbarrier, setmaxnreg, named barriers, the shared memory matrix
+// changes: mbarriers, TMA tile loads (cp.async.bulk.tensor, 2D and 5D) that
+// complete on an mbarrier, setmaxnreg, named barriers, the shared memory matrix
 // descriptor of the 128-byte swizzle, and wgmma.mma_async m64n192k16 and m64n256k16
 // (float32 += bf16 x bf16, A K-major, B MN-major) in the accumulator layout
 // of hopper_mma.cuh's Wgmma<N>.
@@ -67,6 +67,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same for a 5D box at (c0, .., c4), innermost first
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

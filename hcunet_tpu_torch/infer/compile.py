@@ -9,10 +9,13 @@ eval forward up to BN-folding rounding:
   host (grouped weights expanded to block-diagonal dense first);
 * each of the valid convs is kernel K1 (:func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`)
   with the folded bias and the ReLU in its epilogue;
-* transpose convs are ``F.conv_transpose3d`` by default; with
-  ``subpixel_tconv=True`` each stride-(2, 2) one with an even x/y kernel
-  runs as its four parity valid convs, stacked along Cout into one K1
-  launch, plus an interleave (:func:`tconv_subpixel`);
+* a stride-(2, 2) transposed conv with an even x/y kernel runs in its
+  subpixel form, the four parity kernels stacked along Cout: in float32
+  through :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel`, which
+  writes it straight into the up level's concat buffer; with
+  ``subpixel_tconv=True`` (any dtype) as one K1 launch plus an interleave
+  (:func:`tconv_subpixel`).  Other transposed convs, and every one in
+  bfloat16 by default, are ``F.conv_transpose3d``;
 * pools and the crop-and-concat at the skips are plain PyTorch,
   channels-last throughout.
 
@@ -41,6 +44,13 @@ from hcunet_tpu_torch.ops.conv import (
     fold_bn_into_conv,
     max_pool,
 )
+from hcunet_tpu_torch.ops.tconv import (
+    subpixel_pads,
+    subpixel_tconv_weights,
+    tconv3d_subpixel,
+    tconv3d_subpixel_extent,
+    tconv3d_subpixel_takes,
+)
 
 _Folded = Tuple[torch.Tensor, torch.Tensor]  # weights [*k, Cin, Cout], f32 bias
 
@@ -61,52 +71,6 @@ def _folded_conv_params(conv, bn, groups: int, dtype, device) -> _Folded:
         w_f.to(device=device, dtype=dtype).contiguous(),
         b_f.to(device=device).contiguous(),
     )
-
-
-def subpixel_pads(kernel: Sequence[int], pad: Sequence[int] | int = 0):
-    """The input padding ``(px, py, pz)`` of the stacked parity conv that
-    computes a transposed conv of stride (2, 2, 1), kernel ``kernel`` and
-    torch padding ``pad``, or None where that route does not apply.
-
-    Parity ``r`` of output x ``2m + r`` sums ``x[m + o] w[t]`` over the taps
-    ``t = r + pad (mod 2)``, ``o = (r + pad - t) / 2``: for an even kernel
-    ``k`` and an even ``pad <= k - 2`` both parities take ``k / 2`` taps at
-    the offsets ``-(k/2 - 1 - pad/2) .. pad/2``, so one valid conv of the
-    input zero-padded by ``k/2 - 1 - pad/2`` on both sides gives every
-    output of both (the JAX package's ``_subpixel_taps`` rule, which also
-    asks the two sides to be equal; at ``pad = k/2 - 1`` they are, and its
-    taps are these).  z (stride 1) is the transposed conv's own valid conv
-    with the kernel flipped, padded by ``kz - 1 - pad``."""
-    kx, ky, kz = (int(k) for k in kernel)
-    px, py, pz = (pad,) * 3 if isinstance(pad, int) else (int(p) for p in pad)
-    for k, p in ((kx, px), (ky, py)):
-        if k % 2 or p % 2 or p > k - 2:
-            return None
-    if pz > kz - 1:
-        return None
-    return kx // 2 - 1 - px // 2, ky // 2 - 1 - py // 2, kz - 1 - pz
-
-
-def subpixel_tconv_weights(w_up: torch.Tensor) -> torch.Tensor:
-    """The four parity kernels of a stride-(2, 2, 1) transposed conv with
-    an even x/y kernel, stacked along Cout.
-
-    ``w_up`` ``[kx, ky, kz, Cin, Cout]`` (the transposed conv's weight,
-    channels-last) gives ``[kx/2, ky/2, kz, Cin, 4 * Cout]`` with
-    ``w[ux, uy, uz, :, (2 rx + ry) * Cout + c] = w_up[kx-2-2ux+rx,
-    ky-2-2uy+ry, kz-1-uz, :, c]``: the JAX package's
-    ``pack_tconv_subpixel_weights`` (x/y parity taps, flipped, and z
-    flipped), with the parities side by side.  The taps do not depend on
-    the transposed conv's padding (:func:`subpixel_pads`)."""
-    kx, ky = w_up.shape[0], w_up.shape[1]
-    ux = torch.arange(kx // 2)
-    uy = torch.arange(ky // 2)
-    subs = [
-        w_up[kx - 2 - 2 * ux + rx][:, ky - 2 - 2 * uy + ry].flip(2)
-        for rx in (0, 1)
-        for ry in (0, 1)
-    ]
-    return torch.cat(subs, dim=-1).contiguous()
 
 
 def tconv_subpixel(
@@ -152,11 +116,16 @@ def compile_serving_apply(
     dilation > 1, a z upsample stride other than 1 or a pool other than
     (2, 2, 1).
 
-    ``subpixel_tconv=True`` runs each transposed conv through
-    :func:`tconv_subpixel` (one ``conv`` call per up level) where the JAX
-    function takes its subpixel route: an x/y upsample stride of (2, 2) and
-    an even x/y upsample kernel; elsewhere, and by default as in JAX, the
-    transposed convs are ``F.conv_transpose3d``.
+    Where the JAX function can take its subpixel route (an x/y upsample
+    stride of (2, 2) and an even x/y upsample kernel), ``subpixel_tconv=True``
+    runs each transposed conv through :func:`tconv_subpixel` (one ``conv``
+    call per up level); otherwise a float32 forward whose widths
+    :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel_takes` runs them
+    through :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel`, into the
+    buffer that the skip's channels then fill (:func:`_up_concat`), whatever
+    ``conv`` is (a forward on the plain conv still launches that kernel on a
+    CUDA tensor).  Elsewhere, and in bfloat16 by default, the transposed
+    convs are ``F.conv_transpose3d``.
     """
     dev = resolve_device(device)
     cfg: UNetConfig = model.config
@@ -188,17 +157,24 @@ def compile_serving_apply(
             _folded_conv_params(step.conv2, step.batch2, cfg.groups, dtype, dev),
         ]
 
-    use_subpixel = (
-        subpixel_tconv
-        and tuple(cfg.upsample_stride[:2]) == (2, 2)
+    stacked = (
+        tuple(cfg.upsample_stride[:2]) == (2, 2)
         and subpixel_pads(cfg.upsample_kernel) is not None
+    )
+    use_subpixel = subpixel_tconv and stacked
+    use_kernel = (
+        stacked
+        and not subpixel_tconv
+        and dtype == torch.float32
+        and all(tconv3d_subpixel_takes(cin, cout)
+                for cout, cin in zip(cfg.feature_sizes, cfg.feature_sizes[1:]))
     )
     downs = [block(step) for step in model.down_steps]
     ups = []
     for step in model.up_steps:
         w_up = tconv_weight_channels_last(step.up_conv.weight).detach().float().cpu()
         b_up = step.up_conv.bias.detach().float().cpu()
-        if use_subpixel:
+        if use_subpixel or use_kernel:
             w_up, b_up = subpixel_tconv_weights(w_up), b_up.repeat(4)
         ups.append((
             w_up.to(device=dev, dtype=dtype).contiguous(),
@@ -221,22 +197,41 @@ def compile_serving_apply(
                 skips.append(x)
                 x = max_pool(x, cfg.max_pool_kernel)
         for w_up, b_up, convs in ups:
-            if use_subpixel:
-                x = tconv_subpixel(x, w_up, b_up, conv)
-            else:
-                x = conv_transpose_torch(
-                    x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
-                )
             skip = skips.pop()
-            common = [min(a, s) for a, s in zip(x.shape[1:-1], skip.shape[1:-1])]
-            x = crop_spatial(x, common)
-            joined = x if cfg.reference_skip_bug else crop_spatial(skip, common)
-            x = torch.cat([x, joined], dim=-1)
+            if use_kernel:
+                x = _up_concat(x, w_up, b_up, skip, cfg.reference_skip_bug)
+            else:
+                if use_subpixel:
+                    x = tconv_subpixel(x, w_up, b_up, conv)
+                else:
+                    x = conv_transpose_torch(
+                        x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
+                    )
+                common = [min(a, s) for a, s in zip(x.shape[1:-1], skip.shape[1:-1])]
+                x = crop_spatial(x, common)
+                joined = x if cfg.reference_skip_bug else crop_spatial(skip, common)
+                x = torch.cat([x, joined], dim=-1)
             for w, b in convs:
                 x = conv(x, w, b, True)
         return conv(x, w_out, b_out, False).float()
 
     return _bound(apply_fn, dev, rebuild)
+
+
+def _up_concat(x, w_sub, b_sub, skip, skip_bug: bool) -> torch.Tensor:
+    """An up level's input: the transposed conv of ``x`` (stacked parity
+    kernels ``w_sub``, bias ``b_sub``) and the skip, each cropped to the
+    extent they share, side by side along the channels, as ``torch.cat``
+    would give them.  :func:`tconv3d_subpixel` writes the transposed conv
+    into the first half of one buffer and the skip's top-left crop fills
+    the second (with the reference's skip bug, the first half again)."""
+    cout = w_sub.shape[-1] // 4
+    extent = tconv3d_subpixel_extent(x.shape, w_sub.shape)
+    common = [min(a, s) for a, s in zip(extent, skip.shape[1:-1])]
+    joined = torch.empty((x.shape[0], *common, 2 * cout), dtype=x.dtype, device=x.device)
+    tconv3d_subpixel(x, w_sub, b_sub, joined)
+    joined[..., cout:] = joined[..., :cout] if skip_bug else crop_spatial(skip, common)
+    return joined
 
 
 def _bound(apply_fn, device, rebuild):

@@ -1,6 +1,7 @@
 """Kernels K1 (``hcunet_tpu_torch/csrc/conv3d_valid.cu``, also as the input
-gradient of a conv), K2 (``csrc/edt_pass.cu``) and K3
-(``csrc/dot_blocked.cu``) against their plain versions, on the card.
+gradient of a conv), K2 (``csrc/edt_pass.cu``), K3 (``csrc/dot_blocked.cu``)
+and the float32 transposed conv (``csrc/tconv3d_subpixel.cu``) against their
+plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; they skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed::
@@ -192,6 +193,102 @@ def test_conv3d_valid_subpixel_parity_convs_match_plain(cuda, case, dtype):
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol, (case, err, tol)
+
+
+# The float32 transposed conv's own kernel (ops/tconv.py::tconv3d_subpixel,
+# csrc/tconv3d_subpixel.cu): x of the three up levels of a production tile
+# batch (496^2 x 23 tiles) at B = 1 and, for up2, at the batch's B = 6; the
+# small U-Net's (4, 4, 2) kernel at Cout 8 (a ragged N tile); an out cropped
+# below the transposed conv's extent on every axis.  (x shape, Cout, kernel,
+# crop of out's extent)
+TCONV_CASES = [
+    ((1, 54, 54, 19, 128), 64, (8, 8, 2), (0, 0, 0)),
+    ((1, 110, 110, 19, 64), 32, (8, 8, 2), (0, 0, 0)),
+    ((1, 222, 222, 19, 32), 16, (8, 8, 2), (0, 0, 0)),
+    ((6, 222, 222, 19, 32), 16, (8, 8, 2), (0, 0, 0)),
+    ((2, 13, 9, 6, 16), 8, (4, 4, 2), (0, 0, 0)),
+    ((1, 27, 26, 7, 64), 32, (8, 8, 2), (3, 2, 1)),
+]
+
+
+def _tconv_inputs(case, cuda):
+    from hcunet_tpu_torch.ops.tconv import subpixel_tconv_weights
+
+    xs, cout, k, _crop = TCONV_CASES[case]
+    rng = np.random.default_rng(700 + case)
+    x = torch.from_numpy(rng.standard_normal(xs, np.float32)).to(cuda)
+    w_up = torch.from_numpy(rng.standard_normal((*k, xs[-1], cout), np.float32)
+                            / np.float32(np.sqrt(np.prod(k) * xs[-1] / 4)))
+    b = torch.from_numpy(rng.standard_normal(cout, np.float32)).repeat(4)
+    return x, subpixel_tconv_weights(w_up).to(cuda), b.to(cuda)
+
+
+@pytest.mark.parametrize("case", range(len(TCONV_CASES)),
+                         ids=["up0", "up1", "up2", "up2_b6", "small_ragged_n", "cropped"])
+def test_tconv3d_subpixel_matches_plain(cuda, case):
+    from hcunet_tpu_torch.ops.tconv import (
+        TCONV3D_SUBPIXEL,
+        tconv3d_subpixel,
+        tconv3d_subpixel_extent,
+        tconv3d_subpixel_plain,
+    )
+
+    x, w_sub, b_sub = _tconv_inputs(case, cuda)
+    cout, crop = TCONV_CASES[case][1], TCONV_CASES[case][3]
+    extent = [e - c for e, c in zip(tconv3d_subpixel_extent(x.shape, w_sub.shape), crop)]
+    # the concat buffer: the kernel fills channels 0 .. Cout - 1 and no other
+    got = torch.full((x.shape[0], *extent, 2 * cout), float("nan"), device=cuda)
+    want = got.clone()
+    before = (TCONV3D_SUBPIXEL.launches, CONV3D_VALID.launches)
+    tconv3d_subpixel(x, w_sub, b_sub, got)
+    torch.cuda.synchronize()
+    assert (TCONV3D_SUBPIXEL.launches, CONV3D_VALID.launches) == (before[0] + 1, before[1])
+    tconv3d_subpixel_plain(x, w_sub, b_sub, want)
+    assert torch.isnan(got[..., cout:]).all()
+    assert not torch.isnan(got[..., :cout]).any()
+    err, tol = _k1_gap(got[..., :cout], want[..., :cout])
+    assert err <= tol, (case, err, tol)
+
+
+def test_serving_tile_batch_launches_tconv_kernel_and_k1(cuda):
+    """One production tile batch (6 tiles of 496^2 x 23) through the float32
+    serving forward: the three transposed convs on their own kernel and the
+    15 valid convs on K1; the map within 1e-5 of its scale of the forward
+    whose transposed convs are K1's parity convs (``subpixel_tconv=True``)."""
+    from hcunet_tpu_torch.config import UNetConfig
+    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.models.unet import init_unet
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
+
+    model = init_unet(UNetConfig.production_3d(), torch.Generator().manual_seed(0)).eval()
+    x = torch.rand((6, 496, 496, 23, 4), generator=torch.Generator().manual_seed(1)).to(cuda)
+    maps = []
+    for subpixel_tconv, launches in ((False, (3, 15)), (True, (0, 18))):
+        apply = compile_serving_apply(model, dtype=torch.float32, device=cuda,
+                                      subpixel_tconv=subpixel_tconv)
+        before = (TCONV3D_SUBPIXEL.launches, CONV3D_VALID.launches)
+        maps.append(apply(x))
+        torch.cuda.synchronize()
+        assert (TCONV3D_SUBPIXEL.launches - before[0],
+                CONV3D_VALID.launches - before[1]) == launches
+    assert maps[0].shape == (6, 446, 446, 19, 1)
+    err, tol = _k1_gap(*maps)
+    assert err <= tol, (err, tol)
+
+
+def test_tconv3d_subpixel_rejects_what_it_does_not_take(cuda):
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL, tconv3d_subpixel
+
+    x, w_sub, b_sub = _tconv_inputs(4, cuda)
+    out = torch.empty((2, 28, 20, 7, 16), device=cuda)
+    before = TCONV3D_SUBPIXEL.launches
+    with pytest.raises(TypeError, match="float32"):
+        tconv3d_subpixel(x.bfloat16(), w_sub.bfloat16(), b_sub, out.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tconv3d_subpixel(x.transpose(1, 2), w_sub, b_sub, out)
+    with pytest.raises(ValueError, match="no kernel"):
+        tconv3d_subpixel(x, w_sub, b_sub, torch.empty((2, 29, 20, 7, 16), device=cuda))
+    assert TCONV3D_SUBPIXEL.launches == before
 
 
 # The recurrent family's same-padding convs (conv_same: a zero pad, then
@@ -974,14 +1071,15 @@ def test_sharded_tile_engine_on_one_card_repeated(cuda, monkeypatch):
     """The X-sharded tile engine on a mesh that repeats the card: every
     shard runs K1 (the small net's 7 valid convs per tile batch, two tile
     batches per 32-wide slab), and the gathered map equals the
-    single-device engine's (K1 computes each voxel alike at any batch
-    index; cuDNN's float32 transposed convs are pinned deterministic, or
-    they move the map by ~1e-7 from run to run)."""
+    single-device engine's (K1 and the float32 transposed convs' kernel,
+    one launch per tile batch, compute each voxel alike at any batch
+    index; cuDNN stays pinned deterministic for whatever else it runs)."""
     from hcunet_tpu_torch.config import TileConfig, UNetConfig
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
     from hcunet_tpu_torch.models.unet import init_unet
     from hcunet_tpu_torch.parallel.mesh import make_mesh
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
     from hcunet_tpu_torch.parallel.tiled import sharded_tiled_forward
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
@@ -994,10 +1092,11 @@ def test_sharded_tile_engine_on_one_card_repeated(cuda, monkeypatch):
     mesh = make_mesh({"spatial": 2}, [cuda] * 2)
     vol = torch.rand((1, 64, 40, 8, 4), device=cuda)
     run = sharded_tiled_forward(apply, mesh, cfg, tiles)
-    before = CONV3D_VALID.launches
+    before = (CONV3D_VALID.launches, TCONV3D_SUBPIXEL.launches)
     got = run(vol)
     torch.cuda.synchronize()
-    assert CONV3D_VALID.launches - before == 7 * 2 * 2
+    assert CONV3D_VALID.launches - before[0] == 7 * 2 * 2
+    assert TCONV3D_SUBPIXEL.launches - before[1] == 1 * 2 * 2
     want = predict_segmentation_mask(apply, vol, cfg, tiles, use_probability_map=True,
                                      device=cuda)
     assert torch.equal(got, want)
