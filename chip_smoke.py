@@ -8,7 +8,7 @@ toolkit::
     python3 chip_smoke.py --phases k1     # build K1 and run phase 3 alone
 
 ``--phases`` takes a comma-separated subset of ``k1`` (3), ``k3`` (4),
-``slice1`` (5), ``subpixel`` (6), ``tconv`` (6b), ``k2`` (7), ``slice2`` (8), ``blobs``
+``slice1`` (5), ``tconv`` (6), ``k2`` (7), ``slice2`` (8), ``blobs``
 (9), ``train`` (10), ``slice3`` (11), ``cli`` (12), ``recurrent`` (13),
 ``rtrain`` (14), ``dtrain`` (15), ``mesh`` (16), ``hcat`` (17) and ``bench``
 (18); phases 1, 2 (only the kernels the chosen phases launch) and 19 always
@@ -48,25 +48,16 @@ Phases (any failure exits non-zero):
    on the basic one) and, in float32, the transposed-conv kernel 3 times
    (one per up level), and that the float32 request agrees with a forward
    built on the plain conv and the plain transposed conv;
-6. the subpixel route of the transposed convs
-   (``compile_serving_apply(subpixel_tconv=True)``: one K1 launch per up
-   level with the four parity kernels stacked along Cout): K1 at the three
-   stacked parity convs of one bench tile batch against its plain version
-   and the three transposed convs timed by both routes (K1 with its pad
-   and interleave, and cuDNN's ``conv_transpose3d``), in bfloat16 and
-   float32, one tile batch of the bf16 serving forward by both routes
-   within 4 % of the output's scale, and the bench-scene request by both
-   routes in turns,
-   the subpixel one launching K1 18 times per tile batch (17 on the ring
-   path: 3 more than the default route, one per up level);
-6b. the float32 transposed conv's own kernel
+6. the float32 transposed conv's own kernel
    (``hcunet_tpu_torch/csrc/tconv3d_subpixel.cu``, built with ``-Xptxas
    -v`` once more to print its registers and spills) at the three up
    levels of one tile batch, into the concat buffer, against its plain
    version, timed with CUDA events beside its bound (the transposed
    conv's operations at 67 TFLOP/s; and that of every tap of the stacked
    parity convs, the zero padding's too), the plain version, K1's subpixel
-   route (pad, one K1 launch, interleave) and cuDNN's ``conv_transpose3d``,
+   route (``ops/tconv.py::tconv_subpixel``: pad, one K1 launch with the
+   four parity kernels stacked along Cout, interleave) and cuDNN's
+   ``conv_transpose3d``,
    with the sums over the three levels;
 7. hold K2 against its plain version, exactly, at the instance tile
    [1323, 1323, 15] of the main path, the TPU probe's 412^2 x 12 and
@@ -211,7 +202,7 @@ Phases (any failure exits non-zero):
     of every chunk in every ``analyze`` call, ``analyze``'s four stages
     timed, and the bf16 detector's candidates;
 19. print one JSON line of kernel rows (``launches``: the count over the
-    paths, slices 1-3, the subpixel request, training, the command
+    paths, slices 1-3, training, the command
     line's ``analyze``, the recurrent forwards and fits, the mesh paths,
     the hcat facades and the in-process bench metric, with
     ``launches_by_path`` beside it; K1's input-gradient rows
@@ -275,8 +266,8 @@ LAYER_NAMES = (
     + [f"up{i}.conv{j}" for i in range(3) for j in (1, 2)]
     + ["out_conv"]
 )
-# the up levels of the subpixel route, one stacked parity conv each
-SUBPIXEL_LEVELS = ("up0", "up1", "up2")
+# the up levels, one transposed conv each
+UP_LEVELS = ("up0", "up1", "up2")
 # the command line's scene (a pipeline scene cut so that the host flood
 # stays in seconds) and train-unet's crop (the default's z of 24 is deeper
 # than the scene)
@@ -328,12 +319,10 @@ def build_model(cfg, gen):
     return model
 
 
-def record_layers(model, tile_cfg, dev, subpixel_tconv=False):
+def record_layers(model, tile_cfg, dev):
     """Run one tile batch through the serving forward with a recording plain
     conv (no kernel launch) and return the 15 convs' (shape of x, folded
-    weights, bias, relu) in the order the main path runs them; with
-    ``subpixel_tconv`` the 18 of the subpixel route (a parity conv before
-    each up level's two)."""
+    weights, bias, relu) in the order the main path runs them."""
     from hcunet_tpu_torch.infer.compile import compile_serving_apply
     from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
 
@@ -344,14 +333,10 @@ def record_layers(model, tile_cfg, dev, subpixel_tconv=False):
         return conv3d_valid_plain(x, w, b, relu)
 
     tile_in = [e + 2 * p for e, p in zip(tile_cfg.eval_size, tile_cfg.pad)]
-    apply = compile_serving_apply(
-        model, dtype=torch.bfloat16, device=dev, conv=recording_conv,
-        subpixel_tconv=subpixel_tconv,
-    )
+    apply = compile_serving_apply(model, dtype=torch.bfloat16, device=dev, conv=recording_conv)
     apply(torch.zeros((tile_cfg.batch, *tile_in, model.config.in_channels), device=dev))
-    want = len(LAYER_NAMES) + (len(SUBPIXEL_LEVELS) if subpixel_tconv else 0)
-    if len(layers) != want:
-        raise RuntimeError(f"expected {want} valid convs, recorded {len(layers)}")
+    if len(layers) != len(LAYER_NAMES):
+        raise RuntimeError(f"expected {len(LAYER_NAMES)} valid convs, recorded {len(layers)}")
     return layers
 
 
@@ -1723,166 +1708,36 @@ def train_phase(dev) -> tuple:
     return trainer.model.eval(), counts, rows
 
 
-def record_parity_convs(model, tile_cfg, dev) -> list:
-    """The stacked parity convs of one tile batch of the subpixel route, one
-    per up level, as :func:`record_layers` records them: the calls whose
-    kernel is the upsample kernel halved in x and y."""
-    up = model.config.upsample_kernel
-    half = (up[0] // 2, up[1] // 2, up[2])
-    parity = [layer for layer in record_layers(model, tile_cfg, dev, subpixel_tconv=True)
-              if tuple(layer[1].shape[:3]) == half]
-    if len(parity) != len(SUBPIXEL_LEVELS):
-        raise AssertionError(f"expected {len(SUBPIXEL_LEVELS)} parity convs, got {len(parity)}")
-    return parity
+def up_level_inputs(layers) -> list:
+    """The input shape ``[B, X, Y, Z, Cin]`` of each up level's transposed
+    conv: the output of the valid conv before the level's first, from the
+    convs :func:`record_layers` records."""
+    shapes = []
+    for name in UP_LEVELS:
+        x_shape, w, _b, _r = layers[LAYER_NAMES.index(f"{name}.conv1") - 1]
+        spatial = [s - k + 1 for s, k in zip(x_shape[1:4], w.shape[:3])]
+        shapes.append((x_shape[0], *spatial, w.shape[-1]))
+    return shapes
 
 
-def tconv_levels(model, parity, gen, dtype=torch.bfloat16):
+def tconv_levels(model, x_shapes, gen, dtype=torch.bfloat16):
     """Per up level of the serving forward, the transposed conv's inputs in
     ``dtype``: ``(name, x, w_up, b_up, w_sub, b_sub, stride)``, ``x`` random
-    from ``gen`` at the shape the level meets (the recorded parity conv's
-    input less its padding), ``w_up``/``b_up`` the model's transposed conv
+    from ``gen`` (on its device) at the level's input shape in ``x_shapes``
+    (:func:`up_level_inputs`), ``w_up``/``b_up`` the model's transposed conv
     and ``w_sub``/``b_sub`` its stacked parity weights, both from the
     float32 weights."""
-    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights
     from hcunet_tpu_torch.models.unet import tconv_weight_channels_last
+    from hcunet_tpu_torch.ops.tconv import subpixel_tconv_weights
 
     stride = model.config.upsample_stride
-    for name, step, (x_shape, w_rec, _b, _r) in zip(SUBPIXEL_LEVELS, model.up_steps, parity):
-        B, X, Y, Z, cin = x_shape
-        hx, hy, kz = w_rec.shape[:3]
-        dev = w_rec.device
-        x = torch.randn((B, X - 2 * (hx - 1), Y - 2 * (hy - 1), Z - 2 * (kz - 1), cin),
-                        generator=gen, device=dev).to(dtype)
+    dev = gen.device
+    for name, step, x_shape in zip(UP_LEVELS, model.up_steps, x_shapes):
+        x = torch.randn(x_shape, generator=gen, device=dev).to(dtype)
         w_up = tconv_weight_channels_last(step.up_conv.weight).detach().float().cpu()
         b_up = step.up_conv.bias.detach().float().to(dev)
         w_sub = subpixel_tconv_weights(w_up).to(dev, dtype)
         yield (name, x, w_up.to(dev, dtype).contiguous(), b_up, w_sub, b_up.repeat(4), stride)
-
-
-def time_tconv_routes(name, x, w_up, b_up, w_sub, b_sub, stride) -> tuple:
-    """One transposed conv by the subpixel route (``tconv_subpixel``: pad, K1,
-    interleave) and by cuDNN's ``conv_transpose3d``, held to each other at
-    K1's tolerance for the dtype and timed with CUDA events in turns (cuDNN,
-    route, route, cuDNN); returns the two mean times in ms."""
-    from hcunet_tpu_torch.infer.compile import tconv_subpixel
-    from hcunet_tpu_torch.ops.conv import conv_transpose_torch
-
-    def route():
-        return tconv_subpixel(x, w_sub, b_sub)
-
-    def cudnn():
-        return conv_transpose_torch(x, w_up, b_up, stride=stride, accum_dtype=x.dtype)
-
-    a, c = route(), cudnn()
-    torch.cuda.synchronize()
-    err, tol = kernel_error(a, c)
-    out_shape = list(a.shape)
-    del a, c
-    t = [cuda_ms(fn) for fn in (cudnn, route, route, cudnn)]
-    sub_ms, cudnn_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    print(f"  {name}: x {list(x.shape)} -> {out_shape}: subpixel route {sub_ms:8.3f} ms, "
-          f"conv_transpose3d {cudnn_ms:8.3f} ms (route/cuDNN {sub_ms / cudnn_ms:.3f}), "
-          f"max |d| {err:.3e} (tol {tol:.3e})", flush=True)
-    if not err <= tol:
-        raise AssertionError(f"subpixel route {name} differs from conv_transpose3d by {err}")
-    return sub_ms, cudnn_ms
-
-
-def subpixel_phase(model, dev, kernel) -> tuple:
-    """The subpixel route of the transposed convs
-    (``compile_serving_apply(subpixel_tconv=True)``): K1 at the three
-    stacked parity convs of one bench tile batch against its plain version,
-    and the three up levels' transposed convs by both routes (K1 with its
-    pad and interleave, and cuDNN's ``conv_transpose3d``), timed, in bf16
-    (the Segmenter's dtype) and float32 (the command line's); one tile batch
-    of the bf16 serving forward by both routes, within 4 % of the output's
-    scale; the bench-scene request by both routes, timed; and, on the
-    subpixel request (the path, with the counts
-    set to 0 just before it), 18 K1 launches per tile batch, 17 of them on
-    the ring path: 3 more ring launches than the default route's 14, one
-    per up level.  Returns the K1 rows and the path's K1 launches."""
-    from hcunet_tpu_torch.infer.compile import compile_serving_apply
-    from hcunet_tpu_torch.infer.serving import Segmenter
-
-    bf16 = torch.bfloat16
-    t_phase = time.perf_counter()
-    seg = Segmenter(model, dtype=bf16, device=dev)
-    sub = Segmenter(model, dtype=bf16, device=dev, tile_cfg=seg.tile_cfg)
-    sub.apply_fn = compile_serving_apply(sub.model, dtype=bf16, device=dev, subpixel_tconv=True)
-    tile_cfg = seg.tile_cfg
-    parity = record_parity_convs(seg.model, tile_cfg, dev)
-    gen_dev = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    # bf16 serves the Segmenter; float32 is what the command line serves
-    for dtype in (bf16, torch.float32):
-        dt = "bf16" if dtype == bf16 else "f32"
-        print(f"subpixel route: K1 at the 3 stacked parity convs of one tile batch of {tile_cfg} "
-              f"vs plain, {dt}:", flush=True)
-        level_rows = []
-        for name, (x_shape, w, b, relu) in zip(SUBPIXEL_LEVELS, parity):
-            x = torch.randn(x_shape, generator=gen_dev, device=dev).to(dtype)
-            level_rows.append(check_kernel(f"subpixel_{name}", x, w.to(dtype), b, relu))
-            del x
-        ms, lib, bound = (sum(r[k] for r in level_rows) for k in ("ms", "library_ms", "bound_ms"))
-        print(f"K1 subpixel {dt}, 3 parity convs: kernel {ms:.3f} ms, cuDNN conv3d on the parity "
-              f"form {lib:.3f} ms, bound {bound:.3f} ms (kernel at {100 * bound / ms:.1f}% of it)",
-              flush=True)
-        # the three transposed convs by both routes, on their real inputs' shapes
-        print(f"transposed convs, {dt}: the subpixel route (pad, one K1 launch, interleave) vs "
-              "cuDNN conv_transpose3d, in turns:", flush=True)
-        for row, level in zip(level_rows, tconv_levels(seg.model, parity, gen_dev, dtype)):
-            row["route_ms"], row["conv_transpose3d_ms"] = time_tconv_routes(*level)
-        tot_sub, tot_cudnn = (sum(r[k] for r in level_rows)
-                              for k in ("route_ms", "conv_transpose3d_ms"))
-        print(f"transposed convs {dt}, 3 up levels of one tile batch: subpixel route "
-              f"{tot_sub:.3f} ms, conv_transpose3d {tot_cudnn:.3f} ms (route/cuDNN "
-              f"{tot_sub / tot_cudnn:.3f})", flush=True)
-        rows += level_rows
-        torch.cuda.empty_cache()
-
-    # one tile batch of the serving forward by both routes
-    tile_in = [e + 2 * p for e, p in zip(tile_cfg.eval_size, tile_cfg.pad)]
-    x = torch.randn((tile_cfg.batch, *tile_in, model.config.in_channels), generator=gen_dev,
-                    device=dev)
-    a, c = sub.apply_fn(x), seg.apply_fn(x)
-    gap = float((a - c).abs().max()) / float(c.abs().max())
-    print(f"serving forward, one tile batch {list(x.shape)}, bf16: subpixel vs default route "
-          f"max |d| / max |out| {gap:.4f} (limit 0.04)", flush=True)
-    if not gap <= 0.04:
-        raise AssertionError(f"the subpixel route's output is {gap:.4f} of the scale off")
-    del x, a, c
-    torch.cuda.empty_cache()
-
-    # the bench-scene request by both routes, in turns; the second subpixel
-    # request is the path whose launches count
-    scene = np.random.default_rng(SEED).random((*BENCH_SCENE, model.config.in_channels),
-                                               np.float32)
-    batches = n_tile_batches(seg, BENCH_SCENE)
-    seg.predict(scene)  # warm both routes once
-    sub.predict(scene)
-    sec = {"default": [], "subpixel": []}
-    for label, server in (("default", seg), ("subpixel", sub), ("subpixel", sub),
-                          ("default", seg)):
-        torch.cuda.synchronize()
-        reset_counts([kernel])
-        t0 = time.perf_counter()
-        server.predict(scene)
-        sec[label].append(time.perf_counter() - t0)
-        if label == "subpixel":
-            path_launches, path_routes = kernel.launches, dict(kernel.route_launches)
-    mvx = math.prod(BENCH_SCENE) / 1e6
-    print(f"bench-scene request {BENCH_SCENE}, bf16: default route "
-          f"{', '.join(f'{mvx / t:.2f}' for t in sec['default'])} MVx/s, subpixel route "
-          f"{', '.join(f'{mvx / t:.2f}' for t in sec['subpixel'])} MVx/s "
-          f"(host clock, in turns default, subpixel, subpixel, default)", flush=True)
-    want = {"basic": batches, "ring": 17 * batches}
-    print(f"subpixel request: K1 {path_launches} launches over {batches} tile batches, by path "
-          f"{path_routes} (expected {want}: stacked design, 3 more ring launches per tile batch "
-          f"than the default route's 14, one per up level)", flush=True)
-    if path_launches != 18 * batches or path_routes != want:
-        raise AssertionError(f"subpixel route launched K1 {path_routes}, expected {want}")
-    print(f"subpixel phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rows, path_launches
 
 
 def ptxas_report(source: str) -> str:
@@ -1904,13 +1759,12 @@ def tconv_phase(model, dev) -> list:
     a concat buffer of the transposed conv's extent (the up levels' common
     extent at the production tile): held to its plain version at K1's
     float32 tolerance, then timed with CUDA events in turns (kernel, plain,
-    K1's subpixel route, cuDNN's ``conv_transpose3d``, and back) beside
-    its bound, the transposed conv's operations (``2 B X Y Z kx ky kz Cin
-    Cout``) over the float32 peak, and beside ``padded_bound_ms``, the same
-    for every tap of the stacked parity convs, the zero padding's too (as
-    K1's subpixel rows count them), which the kernel computes.  Returns the
-    rows."""
-    from hcunet_tpu_torch.infer.compile import tconv_subpixel
+    K1's subpixel route ``ops/tconv.py::tconv_subpixel``, cuDNN's
+    ``conv_transpose3d``, and back) beside its bound, the transposed conv's
+    operations (``2 B X Y Z kx ky kz Cin Cout``) over the float32 peak, and
+    beside ``padded_bound_ms``, the same for every tap of the stacked
+    parity convs, the zero padding's too, which the kernel computes.
+    Returns the rows."""
     from hcunet_tpu_torch.infer.serving import Segmenter
     from hcunet_tpu_torch.ops.conv import conv_transpose_torch
     from hcunet_tpu_torch.ops.tconv import (
@@ -1918,18 +1772,19 @@ def tconv_phase(model, dev) -> list:
         tconv3d_subpixel,
         tconv3d_subpixel_extent,
         tconv3d_subpixel_plain,
+        tconv_subpixel,
     )
 
     t0 = time.perf_counter()
     print(f"tconv3d_subpixel, -Xptxas -v:\n{ptxas_report('tconv3d_subpixel.cu')}", flush=True)
     seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
-    parity = record_parity_convs(seg.model, seg.tile_cfg, dev)
+    x_shapes = up_level_inputs(record_layers(seg.model, seg.tile_cfg, dev))
     gen_dev = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     print(f"float32 transposed convs of one tile batch of {seg.tile_cfg}: kernel vs plain, "
           "K1's subpixel route and cuDNN, in turns:", flush=True)
     for name, x, w_up, b_up, w_sub, b_sub, stride in tconv_levels(
-            seg.model, parity, gen_dev, torch.float32):
+            seg.model, x_shapes, gen_dev, torch.float32):
         cout = w_up.shape[-1]
         out = torch.empty((x.shape[0], *tconv3d_subpixel_extent(x.shape, w_sub.shape), 2 * cout),
                           device=dev)
@@ -4255,7 +4110,6 @@ PHASES = {
     "k1": ("K1",),
     "k3": ("K3",),
     "slice1": ("K1", "TCONV"),
-    "subpixel": ("K1",),
     "tconv": ("K1", "TCONV"),
     "k2": ("K2",),
     "slice2": ("K1", "K2"),
@@ -4375,14 +4229,7 @@ def main(argv=None) -> int:
         phase_done("slice1", "slice 1")
     del seg
     torch.cuda.empty_cache()
-    # phase 6: the subpixel route of the transposed convs through K1
-    sub_launches = 0
-    if "subpixel" in phases:
-        sub_rows, sub_launches = subpixel_phase(model, dev, CONV3D_VALID)
-        rows += sub_rows
-        torch.cuda.empty_cache()
-        phase_done("subpixel", "subpixel")
-    # phase 6b: the float32 transposed conv's own kernel
+    # phase 6: the float32 transposed conv's own kernel
     tconv_rows = []
     if "tconv" in phases:
         tconv_rows = tconv_phase(model, dev)
@@ -4463,7 +4310,7 @@ def main(argv=None) -> int:
         phase_done("bench", "bench")
 
     # phase 19: results.  A kernel's launches are those of the whole main
-    # path (slices 1-3, the subpixel route, training, the command line, the
+    # path (slices 1-3, training, the command line, the
     # recurrent family's serving and training, detection training's
     # analyze, the mesh paths, the hcat driver surface and the in-process
     # bench metric), not of the check phases:
@@ -4477,7 +4324,7 @@ def main(argv=None) -> int:
         row["launches_by_path"] = tconv_paths if full else None
     for kernel_rows, name in ((rows, "K1"), (k2_rows, "K2"), (k3_rows, "K3")):
         k1 = name == "K1"
-        by_path = {"slice1": total if k1 else 0, "subpixel": sub_launches if k1 else 0,
+        by_path = {"slice1": total if k1 else 0,
                    "slice2": counts[name], "slice3": counts3[name],
                    "train": train_counts["forward"] if k1 else 0,
                    "cli": cli_launches if k1 else 0,
@@ -4495,7 +4342,6 @@ def main(argv=None) -> int:
         row["launches"] = sum(grad_by_path.values()) if full else None
         row["launches_by_path"] = grad_by_path if full else None
     paths = {"slice1": f"slice 1 {total} K1",
-             "subpixel": f"the subpixel request {sub_launches} K1",
              "slice2": f"slice 2 {counts['K1']} K1, {counts['K2']} K2 and {counts['K3']} K3",
              "train": f"training {train_counts['forward']} K1 forward and "
                       f"{train_counts['input_grad']} K1 input-gradient",

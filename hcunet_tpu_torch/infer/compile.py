@@ -9,13 +9,12 @@ eval forward up to BN-folding rounding:
   host (grouped weights expanded to block-diagonal dense first);
 * each of the valid convs is kernel K1 (:func:`~hcunet_tpu_torch.ops.conv.conv3d_valid`)
   with the folded bias and the ReLU in its epilogue;
-* a stride-(2, 2) transposed conv with an even x/y kernel runs in its
-  subpixel form, the four parity kernels stacked along Cout: in float32
-  through :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel`, which
-  writes it straight into the up level's concat buffer; with
-  ``subpixel_tconv=True`` (any dtype) as one K1 launch plus an interleave
-  (:func:`tconv_subpixel`).  Other transposed convs, and every one in
-  bfloat16 by default, are ``F.conv_transpose3d``;
+* the transposed convs take one of two routes, picked from the dtype, the
+  stride, the kernel and the widths: in float32, where every up level is a
+  stride-(2, 2) transposed conv with an even x/y kernel and widths the
+  kernel takes, :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel` (the
+  four parity kernels stacked along Cout), which writes it straight into
+  the up level's concat buffer; otherwise ``F.conv_transpose3d``;
 * pools and the crop-and-concat at the skips are plain PyTorch,
   channels-last throughout.
 
@@ -25,10 +24,9 @@ matrix unit and is not carried over: only its contract is.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from hcunet_tpu_torch.config import UNetConfig, resolve_device
 from hcunet_tpu_torch.models.unet import (
@@ -73,37 +71,12 @@ def _folded_conv_params(conv, bn, groups: int, dtype, device) -> _Folded:
     )
 
 
-def tconv_subpixel(
-    x: torch.Tensor,
-    w_sub: torch.Tensor,
-    b_sub: torch.Tensor,
-    conv: Callable = conv3d_valid,
-    pad: Sequence[int] | int = 0,
-) -> torch.Tensor:
-    """A stride-(2, 2, 1) transposed conv with torch padding ``pad`` as one
-    valid conv and an interleave: ``x`` ``[B, X, Y, Z, Cin]`` zero-padded by
-    :func:`subpixel_pads` (one allocation), ``conv`` with the stacked parity
-    kernels ``w_sub`` (:func:`subpixel_tconv_weights`) and the bias
-    repeated per parity ``b_sub`` (float32 ``[4 * Cout]``), then
-    ``out[2m + rx, 2n + ry] = parity (rx, ry)[m, n]``.  Returns
-    ``[B, 2X + kx - 2 - 2 pad, 2Y + ky - 2 - 2 pad, Z + kz - 1 - 2 pad,
-    Cout]`` in ``x``'s dtype, the transposed conv's output with its bias.
-    ``pad`` must be one that :func:`subpixel_pads` takes."""
-    hx, hy, kz = w_sub.shape[:3]
-    px, py, pz = subpixel_pads((2 * hx, 2 * hy, kz), pad)
-    y = conv(F.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous(), w_sub, b_sub, False)
-    B, Xo, Yo, Zo, n = y.shape
-    y = y.reshape(B, Xo, Yo, Zo, 2, 2, n // 4).permute(0, 1, 4, 2, 5, 3, 6)
-    return y.reshape(B, 2 * Xo, 2 * Yo, Zo, n // 4)
-
-
 def compile_serving_apply(
     model: UNet,
     *,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
     conv: Callable = conv3d_valid,
-    subpixel_tconv: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the BN-folded inference forward for a 3D valid-conv UNet.
 
@@ -116,24 +89,21 @@ def compile_serving_apply(
     dilation > 1, a z upsample stride other than 1 or a pool other than
     (2, 2, 1).
 
-    Where the JAX function can take its subpixel route (an x/y upsample
-    stride of (2, 2) and an even x/y upsample kernel), ``subpixel_tconv=True``
-    runs each transposed conv through :func:`tconv_subpixel` (one ``conv``
-    call per up level); otherwise a float32 forward whose widths
-    :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel_takes` runs them
-    through :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel`, into the
-    buffer that the skip's channels then fill (:func:`_up_concat`), whatever
-    ``conv`` is (a forward on the plain conv still launches that kernel on a
-    CUDA tensor).  Elsewhere, and in bfloat16 by default, the transposed
-    convs are ``F.conv_transpose3d``.
+    In float32, with an x/y upsample stride of (2, 2) and an even x/y
+    upsample kernel (where the JAX function can take its subpixel route)
+    and widths that :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel_takes`
+    at every up level, the transposed convs run through
+    :func:`~hcunet_tpu_torch.ops.tconv.tconv3d_subpixel`, into the buffer
+    that the skip's channels then fill (:func:`_up_concat`), whatever
+    ``conv`` is (a forward on the plain conv still launches that kernel on
+    a CUDA tensor).  Elsewhere, bfloat16 included, they are
+    ``F.conv_transpose3d``.
     """
     dev = resolve_device(device)
     cfg: UNetConfig = model.config
 
     def rebuild(d):
-        return compile_serving_apply(
-            model, dtype=dtype, device=d, conv=conv, subpixel_tconv=subpixel_tconv
-        )
+        return compile_serving_apply(model, dtype=dtype, device=d, conv=conv)
 
     if (
         cfg.image_dimensions != 3
@@ -157,15 +127,10 @@ def compile_serving_apply(
             _folded_conv_params(step.conv2, step.batch2, cfg.groups, dtype, dev),
         ]
 
-    stacked = (
-        tuple(cfg.upsample_stride[:2]) == (2, 2)
-        and subpixel_pads(cfg.upsample_kernel) is not None
-    )
-    use_subpixel = subpixel_tconv and stacked
     use_kernel = (
-        stacked
-        and not subpixel_tconv
-        and dtype == torch.float32
+        dtype == torch.float32
+        and tuple(cfg.upsample_stride[:2]) == (2, 2)
+        and subpixel_pads(cfg.upsample_kernel) is not None
         and all(tconv3d_subpixel_takes(cin, cout)
                 for cout, cin in zip(cfg.feature_sizes, cfg.feature_sizes[1:]))
     )
@@ -174,7 +139,7 @@ def compile_serving_apply(
     for step in model.up_steps:
         w_up = tconv_weight_channels_last(step.up_conv.weight).detach().float().cpu()
         b_up = step.up_conv.bias.detach().float().cpu()
-        if use_subpixel or use_kernel:
+        if use_kernel:
             w_up, b_up = subpixel_tconv_weights(w_up), b_up.repeat(4)
         ups.append((
             w_up.to(device=dev, dtype=dtype).contiguous(),
@@ -201,12 +166,9 @@ def compile_serving_apply(
             if use_kernel:
                 x = _up_concat(x, w_up, b_up, skip, cfg.reference_skip_bug)
             else:
-                if use_subpixel:
-                    x = tconv_subpixel(x, w_up, b_up, conv)
-                else:
-                    x = conv_transpose_torch(
-                        x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
-                    )
+                x = conv_transpose_torch(
+                    x, w_up, b_up, stride=cfg.upsample_stride, accum_dtype=dtype
+                )
                 common = [min(a, s) for a, s in zip(x.shape[1:-1], skip.shape[1:-1])]
                 x = crop_spatial(x, common)
                 joined = x if cfg.reference_skip_bug else crop_spatial(skip, common)

@@ -18,7 +18,7 @@ BN-folding rounding:
 * with ``subpixel_tconv=True`` (the default, as in JAX) the RecursiveUNet's
   (6, 6, 5)/(2, 2, 1) transposed convs with padding 2 run as their four
   parity convs stacked along Cout, one K1 launch each
-  (:func:`~hcunet_tpu_torch.infer.compile.tconv_subpixel`), else as
+  (:func:`~hcunet_tpu_torch.ops.tconv.tconv_subpixel`), else as
   ``F.conv_transpose3d``;
 * RDCNet's stride-2 input conv and its (4, 4, 4)/(2, 2, 2) transposed conv
   stay plain PyTorch, as the JAX package left them to XLA;
@@ -45,17 +45,13 @@ import torch
 
 from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig, resolve_device
 from hcunet_tpu_torch.core.precision import exact_float32
-from hcunet_tpu_torch.infer.compile import (
-    _folded_conv_params,
-    subpixel_pads,
-    subpixel_tconv_weights,
-    tconv_subpixel,
-)
+from hcunet_tpu_torch.infer.compile import _folded_conv_params
 from hcunet_tpu_torch.models.rdcnet import DILATIONS
 from hcunet_tpu_torch.models.runet import UP_PADDING
 from hcunet_tpu_torch.models.unet import conv_weight_channels_last, tconv_weight_channels_last
 from hcunet_tpu_torch.parallel.mesh import canonical_device
 from hcunet_tpu_torch.ops.conv import conv3d_valid, conv_same, conv_transpose_torch, max_pool
+from hcunet_tpu_torch.ops.tconv import subpixel_pads, subpixel_tconv_weights, tconv_subpixel
 from hcunet_tpu_torch.utils.logging import get_logger
 from hcunet_tpu_torch.utils.profiling import span
 

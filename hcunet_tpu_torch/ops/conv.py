@@ -22,7 +22,8 @@ padded by ``d (k - 1) - p`` with the flipped kernel), and plain PyTorch
 also left to XLA.  The recurrent models' same-padding convs
 (:func:`conv_same`) are padded valid convs, so at stride 1 they run on K1
 too.
-The float32 serving forward's transposed convs have a kernel of their own
+The float32 serving forward's transposed convs have a kernel of their own,
+and the RecursiveUNet's run as K1 on their stacked parity kernels
 (:mod:`hcunet_tpu_torch.ops.tconv`); elsewhere transposed convs, and
 strided convs and pooling everywhere, are plain PyTorch, as the JAX package
 left them to XLA.  :func:`batch_norm_train` is train-mode batch norm with flax's

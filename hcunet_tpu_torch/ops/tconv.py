@@ -4,24 +4,31 @@ subpixel form: the U-Net's upsampling, channels-last.
 Output x ``2m + rx``, y ``2n + ry`` of the transposed conv is parity
 ``(rx, ry)`` of one valid conv of the zero-padded input
 (:func:`subpixel_pads`) with the four parity kernels stacked along Cout
-(:func:`subpixel_tconv_weights`).  :func:`tconv3d_subpixel` computes it in
-float32 straight into a caller's buffer, the input of the up level's first
-conv, whose other channels the caller fills with the skip: on a CUDA tensor
-through ``csrc/tconv3d_subpixel.cu`` (launches counted in
-``TCONV3D_SUBPIXEL``), on a CPU tensor through
-:func:`tconv3d_subpixel_plain` (``F.conv_transpose3d``).  The JAX package
-has no Pallas kernel for this: XLA runs its ``tconv_packed_subpixel``.
+(:func:`subpixel_tconv_weights`).  Two routes compute it:
+
+* :func:`tconv3d_subpixel`, float32 straight into a caller's buffer, the
+  input of the up level's first conv, whose other channels the caller fills
+  with the skip: on a CUDA tensor through ``csrc/tconv3d_subpixel.cu``
+  (launches counted in ``TCONV3D_SUBPIXEL``), on a CPU tensor through
+  :func:`tconv3d_subpixel_plain` (``F.conv_transpose3d``);
+* :func:`tconv_subpixel`, any dtype and any padding :func:`subpixel_pads`
+  takes: the padded input, one valid conv (kernel K1 by default) and an
+  interleave.
+
+The JAX package has no Pallas kernel for this: XLA runs its
+``tconv_packed_subpixel``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from hcunet_tpu_torch.csrc import CudaKernel
-from hcunet_tpu_torch.ops.conv import conv_transpose_torch
+from hcunet_tpu_torch.ops.conv import conv3d_valid, conv_transpose_torch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -76,6 +83,30 @@ def subpixel_tconv_weights(w_up: torch.Tensor) -> torch.Tensor:
         for ry in (0, 1)
     ]
     return torch.cat(subs, dim=-1).contiguous()
+
+
+def tconv_subpixel(
+    x: torch.Tensor,
+    w_sub: torch.Tensor,
+    b_sub: torch.Tensor,
+    conv: Callable = conv3d_valid,
+    pad: Sequence[int] | int = 0,
+) -> torch.Tensor:
+    """A stride-(2, 2, 1) transposed conv with torch padding ``pad`` as one
+    valid conv and an interleave: ``x`` ``[B, X, Y, Z, Cin]`` zero-padded by
+    :func:`subpixel_pads` (one allocation), ``conv`` with the stacked parity
+    kernels ``w_sub`` (:func:`subpixel_tconv_weights`) and the bias
+    repeated per parity ``b_sub`` (float32 ``[4 * Cout]``), then
+    ``out[2m + rx, 2n + ry] = parity (rx, ry)[m, n]``.  Returns
+    ``[B, 2X + kx - 2 - 2 pad, 2Y + ky - 2 - 2 pad, Z + kz - 1 - 2 pad,
+    Cout]`` in ``x``'s dtype, the transposed conv's output with its bias.
+    ``pad`` must be one that :func:`subpixel_pads` takes."""
+    hx, hy, kz = w_sub.shape[:3]
+    px, py, pz = subpixel_pads((2 * hx, 2 * hy, kz), pad)
+    y = conv(F.pad(x, (0, 0, pz, pz, py, py, px, px)).contiguous(), w_sub, b_sub, False)
+    B, Xo, Yo, Zo, n = y.shape
+    y = y.reshape(B, Xo, Yo, Zo, 2, 2, n // 4).permute(0, 1, 4, 2, 5, 3, 6)
+    return y.reshape(B, 2 * Xo, 2 * Yo, Zo, n // 4)
 
 
 def transposed_conv_weights(w_sub: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Kernel K1, K2 or K3 against another build of its source, on one card, and
-K1's subpixel route against cuDNN's transposed conv.
+"""Kernel K1, K2 or K3 against another build of its source, on one card.
 
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit::
@@ -8,7 +7,6 @@ toolkit::
     python3 k1_compare.py --other PATH/TO/OTHER/conv3d_valid.cu [--label parent]
     python3 k1_compare.py --kernel k2 --other PATH/TO/OTHER/edt_pass.cu [--label parent]
     python3 k1_compare.py --kernel k3 --other PATH/TO/OTHER/dot_blocked.cu [--label parent]
-    python3 k1_compare.py --kernel k1-subpixel
     python3 k1_compare.py --kernel k1-basic --other PATH/TO/PARENT/conv3d_valid.cu [--label parent]
 
 ``--other`` is a source with the same C interface, for instance a parent
@@ -43,16 +41,6 @@ take against the plain version, its time, ``torch.matmul``'s and the
 bound), then the other build again; its time is the mean of the two.
 Prints the cases, the sums over the layer GEMMs per type, the card line
 and a JSON line of the rows.
-
-K1's subpixel route (``--kernel k1-subpixel``, no ``--other``): at the
-three up levels of one bench tile batch (the serving forward of
-``compile_serving_apply(subpixel_tconv=True)``, bfloat16), K1 on the
-stacked parity conv through ``chip_smoke.check_kernel`` (against the plain
-version, its time, cuDNN's ``conv3d`` on the same parity form and the
-bound), then the whole transposed conv by the subpixel route (pad, K1,
-interleave) and by cuDNN's ``conv_transpose3d``, in turns
-(``chip_smoke.time_tconv_routes``).  Prints the levels, the sums, the card
-line and a JSON line of the rows.
 
 K1's basic path (``--kernel k1-basic``): ``--other`` is the
 ``csrc/conv3d_valid.cu`` of a checkout from before the basic path took
@@ -261,35 +249,6 @@ def compare_k2(args, card, dev) -> None:
         torch.cuda.empty_cache()
     print(card)
     print(json.dumps({"k2": rows}))
-
-
-def compare_k1_subpixel(args, card, dev) -> None:
-    from hcunet_tpu_torch.config import UNetConfig
-    from hcunet_tpu_torch.csrc import build_all
-    from hcunet_tpu_torch.infer.serving import Segmenter
-    from hcunet_tpu_torch.ops.conv import CONV3D_VALID
-
-    del args
-    build_all([CONV3D_VALID])
-    model = cs.build_model(UNetConfig.production_3d(), torch.Generator().manual_seed(cs.SEED))
-    seg = Segmenter(model, dtype=torch.bfloat16, device=dev)
-    parity = cs.record_parity_convs(seg.model, seg.tile_cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    print(f"card: {card}; K1 ({CONV3D_VALID.source}) on the subpixel route, {seg.tile_cfg}, bf16")
-    rows = []
-    for name, (x_shape, w, b, relu) in zip(cs.SUBPIXEL_LEVELS, parity):
-        x = torch.randn(x_shape, generator=gen, device=dev).to(torch.bfloat16)
-        rows.append(cs.check_kernel(f"subpixel_{name}", x, w, b, relu))
-        del x
-    for row, level in zip(rows, cs.tconv_levels(seg.model, parity, gen)):
-        row["route_ms"], row["conv_transpose3d_ms"] = cs.time_tconv_routes(*level)
-    sums = {k: sum(r[k] for r in rows)
-            for k in ("ms", "bound_ms", "plain_ms", "library_ms", "route_ms", "conv_transpose3d_ms")}
-    print("3 up levels: K1 {ms:.3f} ms (bound {bound_ms:.3f}, plain {plain_ms:.3f}, cuDNN conv3d "
-          "{library_ms:.3f}); subpixel route {route_ms:.3f} ms, conv_transpose3d "
-          "{conv_transpose3d_ms:.3f} ms".format(**sums))
-    print(card)
-    print(json.dumps({"k1_subpixel": rows}))
 
 
 def sleep_cycles_per_ms() -> float:
@@ -515,16 +474,13 @@ def compare_k1_basic(args, card, dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k1-subpixel", "k1-basic"),
-                    default="k1",
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k1-basic"), default="k1",
                     help="the kernel to compare")
-    ap.add_argument("--other", type=Path,
+    ap.add_argument("--other", type=Path, required=True,
                     help="another conv3d_valid.cu (k1, k1-basic), edt_pass.cu (k2) or "
-                         "dot_blocked.cu (k3); k1-subpixel takes none")
+                         "dot_blocked.cu (k3)")
     ap.add_argument("--label", default="other", help="the other build's name in the output")
     args = ap.parse_args(argv)
-    if (args.other is None) != (args.kernel == "k1-subpixel"):
-        ap.error("--other is required for k1, k1-basic, k2 and k3, and k1-subpixel takes none")
     if not torch.cuda.is_available():
         print("k1_compare: CUDA is not available", file=sys.stderr)
         return 1
@@ -532,7 +488,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     compare = {"k1": compare_k1, "k2": compare_k2, "k3": compare_k3,
-               "k1-subpixel": compare_k1_subpixel, "k1-basic": compare_k1_basic}[args.kernel]
+               "k1-basic": compare_k1_basic}[args.kernel]
     compare(args, cs.card_line(), dev)
     return 0
 

@@ -58,16 +58,6 @@ from test_torch_port_validate import blob_unet, write_npy_stack
 from torch_port_support import SMALL
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread (the CPU's float32 sums depend on the thread count;
-    the test workers share the machine's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def small_detector(monkeypatch):
     """Both command lines rebuild a checkpoint's detector with the small

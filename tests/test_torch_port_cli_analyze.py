@@ -15,7 +15,7 @@ from hcunet_tpu.benchmarks import _blob_scene
 from hcunet_tpu.data.tiff import imwrite
 from hcunet_tpu_torch import cli as tcli
 
-from test_torch_port_cli import one_thread, run, small_detector, write_checkpoints  # noqa: F401
+from test_torch_port_cli import run, small_detector, write_checkpoints  # noqa: F401
 
 SHAPE = (96, 96, 6)
 

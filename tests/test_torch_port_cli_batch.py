@@ -12,7 +12,7 @@ import pytest
 from hcunet_tpu import cli as jcli
 from hcunet_tpu_torch import cli as tcli
 
-from test_torch_port_cli import one_thread, run, small_detector, write_checkpoints  # noqa: F401
+from test_torch_port_cli import run, small_detector, write_checkpoints  # noqa: F401
 from test_torch_port_cli_analyze import _write_scene
 
 

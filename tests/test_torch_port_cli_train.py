@@ -35,15 +35,6 @@ from test_torch_port_cli import _jax_parser, _options, _subparsers, run
 COMMANDS = ("train-recurrent", "train-rcnn", "pretrain-backbone")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("name", COMMANDS)
 def test_training_parsers_match_jax(name):
     got = _options(_subparsers(tcli.build_parser())[name])

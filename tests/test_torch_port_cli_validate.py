@@ -24,7 +24,7 @@ from hcunet_tpu_torch.infer.compile import compile_serving_apply
 from hcunet_tpu_torch.infer.tiling import predict_segmentation_mask
 from hcunet_tpu_torch.utils.checkpoint import load_unet
 
-from test_torch_port_cli import one_thread, run, write_checkpoints  # noqa: F401
+from test_torch_port_cli import run, write_checkpoints  # noqa: F401
 from test_torch_port_validate import assert_validation_close, write_npy_stack
 
 

@@ -51,14 +51,6 @@ TINY_KW = dict(
 TILES = dict(eval_size=(48, 48, 6), pad=(24, 24, 3), batch=2)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     """A U-Net and a detector checkpoint written by the JAX package."""

@@ -1,25 +1,21 @@
 """The port's serving forward against the JAX package's on the variants of
 ``tests/test_serving_compile.py``: the reference skip bug, a batch of two
-tiles, a 2D config that falls back to the plain forward, and the subpixel
-route of the transposed convs.  atol 5e-5, as in
-``test_torch_port_unet.py``."""
+tiles, a 2D config that falls back to the plain forward, and the JAX
+function's subpixel route of the transposed convs; K1's subpixel route
+(``ops/tconv.py::tconv_subpixel``) against the transposed conv.  atol 5e-5,
+as in ``test_torch_port_unet.py``."""
 
 import numpy as np
 import pytest
 import torch
 
-from hcunet_tpu_torch.config import UNetConfig
-from hcunet_tpu_torch.infer.compile import (
-    compile_serving_apply,
-    subpixel_tconv_weights,
-    tconv_subpixel,
-)
 from hcunet_tpu_torch.ops.conv import conv_transpose_torch
-from tests.torch_port_support import SMALL, assert_forwards_match, jax_unet, port_unet
+from hcunet_tpu_torch.ops.tconv import subpixel_tconv_weights, tconv_subpixel
+from tests.torch_port_support import SMALL, assert_forwards_match, jax_unet
 
 PRODUCTION = (156, 156, 10)
 
-# name: (config kwargs, tile spatial, batch, serving kwargs)
+# name: (config kwargs, tile spatial, batch, the JAX serving compiler's kwargs)
 CASES = {
     "reference_skip_bug": (dict(reference_skip_bug=True), PRODUCTION, 1, {}),
     "small_net_batch2": (SMALL, (48, 48, 8), 2, {}),
@@ -31,7 +27,7 @@ CASES = {
         ),
         (36, 36), 2, {},
     ),
-    "production_3d_subpixel_tconv": ({}, PRODUCTION, 1, dict(subpixel_tconv=True)),
+    "production_3d_jax_subpixel": ({}, PRODUCTION, 1, dict(subpixel_tconv=True)),
 }
 
 
@@ -39,48 +35,6 @@ CASES = {
 def test_port_serving_variants_match_jax(name):
     kw, spatial, batch, serving = CASES[name]
     assert_forwards_match(jax_unet(kw, spatial), spatial, batch, **serving)
-
-
-def test_subpixel_route_matches_the_transposed_conv_route():
-    """The port's two routes of the transposed convs at production_3d on
-    one (156, 156, 10) tile, float32: the parity convs through K1's plain
-    version against ``F.conv_transpose3d``."""
-    cfg, _jmodel, variables = jax_unet({}, PRODUCTION)
-    model = port_unet(cfg, variables)
-    x = torch.from_numpy(
-        np.random.default_rng(2).random((1, *PRODUCTION, cfg.in_channels), np.float32)
-    )
-    routes = [
-        compile_serving_apply(model, dtype=torch.float32, device="cpu", subpixel_tconv=s)(x)
-        for s in (False, True)
-    ]
-    assert routes[0].shape == routes[1].shape == (1, 110, 110, 6, 1)
-    np.testing.assert_allclose(routes[1].numpy(), routes[0].numpy(), atol=5e-5, rtol=0)
-
-
-def test_subpixel_route_gate_matches_jax():
-    """Only a stride-(2, 2) transposed conv with an even x/y kernel takes
-    the subpixel route; an odd kernel keeps the transposed conv, as in the
-    JAX function, so the output is the same either way."""
-    kw = dict(SMALL, upsample_kernel=(3, 3, 2))
-    cfg = UNetConfig(**kw)
-    _c, _j, variables = jax_unet(kw, (48, 48, 8))
-    model = port_unet(cfg, variables)
-    calls = []
-
-    def conv(x, w, b, relu):
-        calls.append(tuple(w.shape))
-        from hcunet_tpu_torch.ops.conv import conv3d_valid_plain
-
-        return conv3d_valid_plain(x, w, b, relu)
-
-    x = torch.rand((1, 48, 48, 8, cfg.in_channels), generator=torch.Generator().manual_seed(0))
-    a = compile_serving_apply(model, dtype=torch.float32, device="cpu", conv=conv)(x)
-    b = compile_serving_apply(
-        model, dtype=torch.float32, device="cpu", conv=conv, subpixel_tconv=True
-    )(x)
-    assert len(calls) == 2 * 7  # the 7 valid convs, twice; no parity conv
-    assert torch.equal(a, b)
 
 
 # (x of the transposed conv [B, X, Y, Z, Cin], Cout) at the three up levels of

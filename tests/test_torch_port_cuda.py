@@ -154,11 +154,11 @@ TRAIN_LAYERS = [
 ]
 
 
-# The subpixel route of the transposed convs (compile_serving_apply(
-# subpixel_tconv=True)): one K1 launch per up level with the four parity
-# kernels stacked along Cout, on x zero-padded by (3, 3, 1).  The padded x
-# and stacked weights at the three up levels of a production_3d (156, 156,
-# 10) tile: Cin 128 / 64 / 32, stacked Cout 256 / 128 / 64.
+# K1's subpixel route of the transposed convs (ops/tconv.py::tconv_subpixel):
+# one K1 launch per up level with the four parity kernels stacked along
+# Cout, on x zero-padded by (3, 3, 1).  The padded x and stacked weights at
+# the three up levels of a production_3d (156, 156, 10) tile: Cin 128 / 64 /
+# 32, stacked Cout 256 / 128 / 64.
 SUBPIXEL_CASES = [
     ((1, 18, 18, 8, 128), (4, 4, 2, 128, 256)),
     ((1, 32, 32, 8, 64), (4, 4, 2, 64, 128)),
@@ -169,7 +169,7 @@ SUBPIXEL_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", range(len(SUBPIXEL_CASES)), ids=["up0", "up1", "up2"])
 def test_conv3d_valid_subpixel_parity_convs_match_plain(cuda, case, dtype):
-    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights, tconv_subpixel
+    from hcunet_tpu_torch.ops.tconv import subpixel_tconv_weights, tconv_subpixel
 
     xs, ws = SUBPIXEL_CASES[case]
     rng = np.random.default_rng(100 + case)
@@ -250,22 +250,24 @@ def test_tconv3d_subpixel_matches_plain(cuda, case):
     assert err <= tol, (case, err, tol)
 
 
-def test_serving_tile_batch_launches_tconv_kernel_and_k1(cuda):
+def test_serving_tile_batch_launches_tconv_kernel_and_k1(cuda, monkeypatch):
     """One production tile batch (6 tiles of 496^2 x 23) through the float32
     serving forward: the three transposed convs on their own kernel and the
-    15 valid convs on K1; the map within 1e-5 of its scale of the forward
-    whose transposed convs are K1's parity convs (``subpixel_tconv=True``)."""
+    15 valid convs on K1; the map within 1e-5 of its scale of the same
+    forward with the kernel's plain version (cuDNN's transposed conv) in
+    its place."""
     from hcunet_tpu_torch.config import UNetConfig
-    from hcunet_tpu_torch.infer.compile import compile_serving_apply
+    from hcunet_tpu_torch.infer import compile as compile_mod
     from hcunet_tpu_torch.models.unet import init_unet
-    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL
+    from hcunet_tpu_torch.ops.tconv import TCONV3D_SUBPIXEL, tconv3d_subpixel_plain
 
     model = init_unet(UNetConfig.production_3d(), torch.Generator().manual_seed(0)).eval()
     x = torch.rand((6, 496, 496, 23, 4), generator=torch.Generator().manual_seed(1)).to(cuda)
     maps = []
-    for subpixel_tconv, launches in ((False, (3, 15)), (True, (0, 18))):
-        apply = compile_serving_apply(model, dtype=torch.float32, device=cuda,
-                                      subpixel_tconv=subpixel_tconv)
+    for plain_tconv, launches in ((False, (3, 15)), (True, (0, 15))):
+        if plain_tconv:
+            monkeypatch.setattr(compile_mod, "tconv3d_subpixel", tconv3d_subpixel_plain)
+        apply = compile_mod.compile_serving_apply(model, dtype=torch.float32, device=cuda)
         before = (TCONV3D_SUBPIXEL.launches, CONV3D_VALID.launches)
         maps.append(apply(x))
         torch.cuda.synchronize()
@@ -339,7 +341,7 @@ def test_recurrent_parity_conv_pad2_matches_plain(cuda, cin, cout, dtype):
     by the subpixel route: one K1 launch of the (3, 3, 5) stacked parity
     kernels on x padded by (1, 1, 2), against the same route on the plain
     conv."""
-    from hcunet_tpu_torch.infer.compile import subpixel_tconv_weights, tconv_subpixel
+    from hcunet_tpu_torch.ops.tconv import subpixel_tconv_weights, tconv_subpixel
 
     rng = np.random.default_rng(cin)
     x = torch.from_numpy(rng.standard_normal((2, 16, 14, 10, cin), np.float32)).to(cuda, dtype)

@@ -50,15 +50,6 @@ BOXES = np.asarray([[4, 4, 20, 22], [30, 10, 50, 30], [10, 40, 28, 60]], np.floa
 LABELS = np.asarray([1, 2, 1], np.int32)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def detector_pair(seed=0):
     """``(JAX detector, its numpy variables, the port's detector)``: the
     small backbone at width 8 with random weights from ``seed``."""

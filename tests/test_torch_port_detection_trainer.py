@@ -15,7 +15,6 @@ import jax
 import numpy as np
 import optax
 import pytest
-import torch
 
 from hcunet_tpu.train.detection_trainer import DetectionTrainConfig as JaxDetectionTrainConfig
 from hcunet_tpu.train.detection_trainer import DetectionTrainer as JaxDetectionTrainer
@@ -29,15 +28,6 @@ CASES = {
     "cosine_b2": dict(batch=2, cfg=dict(schedule="cosine", warmup_steps=1, total_steps=4),
                       steps_per_epoch=1),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _as_one_tree(v):

@@ -52,15 +52,6 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALIAS_ROOT = os.path.join(REPO_ROOT, "hcat")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -10,7 +10,6 @@ that both sides pick the same tile geometry on any machine.
 
 import numpy as np
 import pytest
-import torch
 
 from hcunet_tpu.config import WatershedConfig as JaxWatershedConfig
 from hcunet_tpu.infer import instance as jinst
@@ -21,16 +20,6 @@ from hcunet_tpu_torch.ops.distance import EDT_PASS
 from test_watershed_parity import _instance_scene
 
 GIB = 2**30
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One torch thread: the tiles are small, and the test workers share the
-    machine's cores (more threads only wait on each other)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _boxes_on_blobs(prob, n, z):

@@ -37,17 +37,11 @@ from tests.torch_port_support import (  # noqa: F401
     flat,
     jax_unet,
     mesh_pair,
-    one_thread,
     port_unet,
     spatial8,
 )
 
 TILES = dict(eval_size=(16, 24, 8), pad=(16, 16, 2), batch=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread(one_thread):  # noqa: F811
-    yield
 
 
 @pytest.fixture(scope="module")

@@ -24,14 +24,9 @@ from hcunet_tpu.config import WatershedConfig as JaxWatershedConfig
 from hcunet_tpu.infer import pipeline as jpipeline
 from hcunet_tpu_torch import PipelineConfig, TileConfig, WatershedConfig, analyze
 from tests.test_torch_port_pipeline import _volume, models  # noqa: F401
-from tests.torch_port_support import SMALL, one_thread, spatial8  # noqa: F401
+from tests.torch_port_support import SMALL, spatial8  # noqa: F401
 
 TILES = dict(eval_size=(16, 24, 6), pad=(16, 16, 2), batch=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread(one_thread):  # noqa: F811
-    yield
 
 
 def _key(cells):

@@ -27,7 +27,7 @@ from hcunet_tpu_torch.config import TileConfig
 from hcunet_tpu_torch.infer import pipeline as tpipeline
 from hcunet_tpu_torch.train import detection_trainer, trainer as ttrainer
 
-from test_torch_port_cli import one_thread, run, small_detector, write_checkpoints  # noqa: F401
+from test_torch_port_cli import run, small_detector, write_checkpoints  # noqa: F401
 from test_torch_port_cli_train import write_recursive_stack, write_sections
 from test_torch_port_validate import write_npy_stack
 

@@ -18,7 +18,7 @@ from hcunet_tpu.train.detection_trainer import DetectionTrainConfig as JaxDetect
 from hcunet_tpu.train.detection_trainer import DetectionTrainer as JaxDetectionTrainer
 from hcunet_tpu_torch.train.detection_trainer import DetectionTrainConfig, DetectionTrainer
 from tests.test_torch_port_detection_train import BOXES, LABELS, MAX_GT, detector_pair, image
-from tests.test_torch_port_detection_trainer import LR, _as_one_tree, one_thread  # noqa: F401
+from tests.test_torch_port_detection_trainer import LR, _as_one_tree
 from tests.torch_port_support import assert_trajectories_match, mesh_pair
 
 

@@ -23,14 +23,9 @@ from hcunet_tpu.infer import compile_recurrent as jcr
 from hcunet_tpu_torch.infer.compile_recurrent import compile_recurrent_apply
 from hcunet_tpu_torch.parallel.mesh import make_mesh
 from tests.test_torch_port_recurrent import jax_recurrent
-from tests.torch_port_support import one_thread, spatial8  # noqa: F401
+from tests.torch_port_support import spatial8  # noqa: F401
 
 SPATIAL = (512, 16, 10)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread(one_thread):  # noqa: F811
-    yield
 
 
 @pytest.mark.parametrize("family", ["runet", "rdcnet"])

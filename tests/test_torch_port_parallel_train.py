@@ -39,16 +39,10 @@ from tests.torch_port_support import (  # noqa: F401
     jax_unet,
     mesh_pair,
     multichip8,
-    one_thread,
     port_unet,
 )
 
 SPATIAL = (48, 48, 8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread(one_thread):  # noqa: F811
-    yield
 
 
 @pytest.fixture(scope="module")

@@ -55,17 +55,6 @@ VOLUMES = ("float32", "uint16", "uint8")
 TRANSFER = {"float32": "float32", "uint16": "uint16", "uint8": "uint8"}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread for every run of the module (the CPU's float32 sums
-    depend on the thread count, and runs are compared bit for bit); the
-    chunks are small, and the test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _volume(dtype):
     vol16, _ = _blob_scene(*SHAPE, n_cells=12, seed=0)
     if dtype == "uint16":

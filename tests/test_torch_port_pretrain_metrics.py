@@ -28,15 +28,6 @@ from tests.torch_port_support import assert_trajectories_match
 WIDTH, HW, BATCH, STEPS, LR = 8, (48, 48), 4, 3, 1e-3
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("seed", [0, 7])
 def test_synthetic_shapes_batch_equals_jax(seed):
     rng_j, rng_t = np.random.default_rng(seed), np.random.default_rng(seed)

@@ -35,10 +35,10 @@ from hcunet_tpu.ops.conv import conv_transpose_torch as jax_conv_transpose
 from hcunet_tpu.ops.peaks import peak_local_max as jax_peak_local_max
 from hcunet_tpu.utils import port_torch
 from hcunet_tpu_torch.config import RDCNetConfig, RUNetConfig, config_from_dict, config_to_dict
-from hcunet_tpu_torch.infer.compile import subpixel_pads, subpixel_tconv_weights, tconv_subpixel
 from hcunet_tpu_torch.infer.vector_cluster import hist3d, pixel_vec_to_cell
 from hcunet_tpu_torch.ops.conv import conv_same, conv_transpose_torch
 from hcunet_tpu_torch.ops.peaks import peak_local_max
+from hcunet_tpu_torch.ops.tconv import subpixel_pads, subpixel_tconv_weights, tconv_subpixel
 from hcunet_tpu_torch.utils import port_jax
 from hcunet_tpu_torch.models.rdcnet import RDCNet
 from hcunet_tpu_torch.models.runet import RecursiveUNet

@@ -37,15 +37,6 @@ RDCNET = dict(complexity=2, timesteps=2)
 FAMILIES = {"runet": RUNET, "rdcnet": RDCNET}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the CPU's float32 sums depend on the thread count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def sample(seed=0, spatial=SPATIAL):
     """``(image, mask, pwl, com, vec)``, a RecursiveStack sample's layout."""
     rng = np.random.default_rng(seed)

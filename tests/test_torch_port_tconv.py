@@ -4,9 +4,9 @@
 even x/y kernel of a float32 forward through ``tconv3d_subpixel``, which
 writes it into the up level's concat buffer (the kernel
 ``csrc/tconv3d_subpixel.cu`` on the card, ``F.conv_transpose3d`` here);
-bfloat16, an odd kernel, widths the kernel does not take and
-``subpixel_tconv=True`` keep their routes.  The kernel itself is held to the
-plain version in ``test_torch_port_cuda.py``.
+bfloat16, an odd kernel and widths the kernel does not take (at any up
+level) keep ``F.conv_transpose3d``.  The kernel itself is held to the plain
+version in ``test_torch_port_cuda.py``.
 """
 
 import numpy as np
@@ -71,9 +71,9 @@ def test_concat_buffer_is_the_cat_bit_for_bit(case, skip_bug):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Calls of the three transposed-conv routes of the serving forward."""
+    """Calls of the two transposed-conv routes of the serving forward."""
     seen = []
-    for name in ("tconv3d_subpixel", "conv_transpose_torch", "tconv_subpixel"):
+    for name in ("tconv3d_subpixel", "conv_transpose_torch"):
         inner = getattr(compile_mod, name)
 
         def record(*args, _inner=inner, _name=name, **kwargs):
@@ -85,42 +85,56 @@ def routes(monkeypatch):
 
 
 ROUTE_CASES = {
-    # (config over SMALL, serving dtype, subpixel_tconv, the route taken)
-    "float32_even_kernel": ({}, torch.float32, False, "tconv3d_subpixel"),
-    "float32_production_widths": (dict(feature_sizes=(16, 32)), torch.float32, False,
+    # (config over SMALL, serving dtype, the route taken)
+    "float32_even_kernel": ({}, torch.float32, "tconv3d_subpixel"),
+    "float32_production_widths": (dict(feature_sizes=(16, 32)), torch.float32,
                                   "tconv3d_subpixel"),
-    "bfloat16": ({}, torch.bfloat16, False, "conv_transpose_torch"),
-    "odd_kernel": (dict(upsample_kernel=(3, 3, 2)), torch.float32, False,
-                   "conv_transpose_torch"),
-    "widths_not_multiples_of_4": (dict(feature_sizes=(6, 12)), torch.float32, False,
+    "float32_reference_skip_bug": (dict(reference_skip_bug=True), torch.float32,
+                                   "tconv3d_subpixel"),
+    "bfloat16": ({}, torch.bfloat16, "conv_transpose_torch"),
+    "odd_kernel": (dict(upsample_kernel=(3, 3, 2)), torch.float32, "conv_transpose_torch"),
+    "widths_not_multiples_of_4": (dict(feature_sizes=(6, 12)), torch.float32,
                                   "conv_transpose_torch"),
-    "subpixel_tconv_float32": ({}, torch.float32, True, "tconv_subpixel"),
-    "subpixel_tconv_bfloat16": ({}, torch.bfloat16, True, "tconv_subpixel"),
+    # Cin 10 refused before Cout (each level's widths double, so a Cin off
+    # the rule comes with an odd Cout)
+    "cin_not_a_multiple_of_4": (dict(feature_sizes=(5, 10)), torch.float32,
+                                "conv_transpose_torch"),
+    # 24 -> 12 taken alone, 12 -> 6 refused: both levels keep the transposed conv
+    "one_level_refused": (dict(feature_sizes=(6, 12, 24)), torch.float32,
+                          "conv_transpose_torch"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ROUTE_CASES))
 def test_serving_route_of_the_transposed_convs(routes, case):
     """The route follows what the forward can observe: the dtype, the
-    stride and kernel (``subpixel_pads``), the widths, and
-    ``subpixel_tconv``; one call per up level."""
-    kw, dtype, subpixel_tconv, want = ROUTE_CASES[case]
+    stride and kernel (``subpixel_pads``) and the widths of every up level;
+    one call per up level."""
+    kw, dtype, want = ROUTE_CASES[case]
     cfg = UNetConfig(**{**SMALL, **kw})
     model = init_unet(cfg, torch.Generator().manual_seed(0)).eval()
-    apply = compile_mod.compile_serving_apply(model, dtype=dtype, device="cpu",
-                                              subpixel_tconv=subpixel_tconv)
+    apply = compile_mod.compile_serving_apply(model, dtype=dtype, device="cpu")
     x = torch.rand((1, 48, 48, 8, cfg.in_channels), generator=torch.Generator().manual_seed(1))
     out = apply(x)
     assert routes == [want] * (len(cfg.feature_sizes) - 1)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
-def test_kernel_route_equals_the_model_forward():
+# name: (the config, the tiles [B, X, Y, Z])
+FORWARD_CASES = {
+    "small_two_tiles": (UNetConfig(**{**SMALL, "feature_sizes": (8, 16, 32)}), (2, 60, 60, 8)),
+    "production_3d": (UNetConfig.production_3d(), (1, 156, 156, 10)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+def test_kernel_route_equals_the_model_forward(case):
     """The float32 serving forward through the kernel route's plain version
-    against the model's own eval forward, BN folded, on two tiles."""
-    cfg = UNetConfig(**{**SMALL, "feature_sizes": (8, 16, 32)})
+    against the model's own eval forward (BN unfolded, the transposed
+    convs on ``F.conv_transpose3d``)."""
+    cfg, tiles = FORWARD_CASES[case]
     model = init_unet(cfg, torch.Generator().manual_seed(2)).eval()
-    x = torch.rand((2, 60, 60, 8, cfg.in_channels), generator=torch.Generator().manual_seed(3))
+    x = torch.rand((*tiles, cfg.in_channels), generator=torch.Generator().manual_seed(3))
     got = compile_mod.compile_serving_apply(model, dtype=torch.float32, device="cpu")(x)
     with torch.no_grad():
         want = model(x)

@@ -73,21 +73,23 @@ def port_unet(cfg, variables):
     return model.eval()
 
 
-def assert_forwards_match(unet, spatial, batch, atol=5e-5, **serving_kwargs):
+def assert_forwards_match(unet, spatial, batch, atol=5e-5, **jax_serving_kwargs):
     """Port forward and serving forward against JAX ``apply`` and serving,
-    for ``unet = jax_unet(...)``; ``serving_kwargs`` (``subpixel_tconv=``)
-    go to both serving compilers."""
+    for ``unet = jax_unet(...)``; ``jax_serving_kwargs``
+    (``subpixel_tconv=``) go to the JAX serving compiler alone."""
     cfg, jmodel, variables = unet
     x = np.random.default_rng(1).random((batch, *spatial, cfg.in_channels), np.float32)
     want = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
     want_serving = np.asarray(
-        jax_serving_apply(jmodel, variables, dtype=jnp.float32, **serving_kwargs)(jnp.asarray(x))
+        jax_serving_apply(jmodel, variables, dtype=jnp.float32, **jax_serving_kwargs)(
+            jnp.asarray(x)
+        )
     )
     model = port_unet(cfg, variables)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     got_serving = compile_serving_apply(
-        model, dtype=torch.float32, device="cpu", **serving_kwargs
+        model, dtype=torch.float32, device="cpu"
     )(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape and got_serving.shape == want.shape
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
@@ -139,17 +141,6 @@ def assert_trajectories_match(got, want, start, lr, steps, far=FAR, share=1e-3, 
 
 
 # --- multi-device -------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """One torch thread for a module's runs: the CPU's float32 sums depend
-    on the thread count, and the test workers share the machine's cores
-    (a data-parallel step adds one thread per replica)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mesh_pair(axis_sizes):
